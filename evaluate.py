@@ -49,9 +49,8 @@ def main():
     if args.platform:
         jax.config.update("jax_platforms", args.platform)
 
-    # persistent XLA executable cache — the 500-step recurrent per-agent
-    # eval scan is the repo's slowest TPU compile (~25 min cold); with the
-    # cache it deserializes in seconds on every later invocation
+    # persistent XLA executable cache: the 500-step recurrent eval scan
+    # is a long compile; with the cache later invocations deserialize it
     from rware_tpu.compile_cache import enable_persistent_cache
 
     enable_persistent_cache()

@@ -1,9 +1,9 @@
-"""rware_tpu — a TPU-native multi-robot warehouse (RWARE) framework.
+"""rware_tpu — a JAX multi-robot warehouse (RWARE) framework.
 
 A ground-up JAX/XLA re-design of ``semitable/robotic-warehouse``: the entire
 environment — state, collision resolution, dynamics, rewards, observations —
 is a pure, shape-static XLA program that ``vmap``s over thousands of
-environments per chip and shards over device meshes, while preserving the
+environments per device and shards over device meshes, while preserving the
 reference's behavioural semantics (validated by golden and differential
 tests).
 

@@ -112,7 +112,7 @@ class Checkpointer:
             except ValueError as e:
                 if "not found in jax.local_devices" not in str(e):
                     raise
-                # cross-platform restore (e.g. a TPU-trained checkpoint
+                # cross-platform restore (e.g. a GPU-trained checkpoint
                 # evaluated on CPU): the saved sharding names devices this
                 # process doesn't have — re-read every leaf as host numpy
                 # from the array metadata instead

@@ -1,6 +1,6 @@
 """The warehouse dynamics: pure, jittable reset/step programs.
 
-This is the TPU-native replacement for the reference's ``Warehouse.reset`` /
+This is the batched, jittable replacement for the reference's ``Warehouse.reset`` /
 ``Warehouse.step`` (``/root/reference/rware/warehouse.py:757-946``): the whole
 transition — action decode, collision resolution, movement, load toggles,
 delivery, request-queue resampling, rewards, termination and observation — is

@@ -3,7 +3,7 @@
 The reference scatters its state across mutable Python objects (``Agent`` /
 ``Shelf`` instances with class-level id counters, rware/warehouse.py:73-137)
 and a derived id grid.  Here the entire state of ONE environment is a single
-flax struct of small integer arrays; a batch of B environments is simply the
+pytree dataclass of small integer arrays; a batch of B environments is simply the
 same pytree with a leading batch axis (created via ``jax.vmap``), which is
 also the unit of sharding across a device mesh and of orbax checkpointing.
 
@@ -18,10 +18,12 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+
+from rware_tpu import pytree
 
 
-class WarehouseState(struct.PyTreeNode):
+@pytree.dataclass
+class WarehouseState:
     """Complete dynamic state of one warehouse environment."""
 
     agent_x: jax.Array  # (N,) int32

@@ -1,10 +1,10 @@
 """Multi-host scale-out and recovery.
 
-The reference is single-process (SURVEY.md §2: no distributed layer).  The
-TPU-native story: one process per host, ``jax.distributed`` for the process
-group, a global mesh whose ``env`` axis spans every chip in the slice, and
-env batches built host-locally then assembled into one global sharded array
-— collectives ride ICI/DCN under XLA, nothing in the engine changes.
+The reference is single-process (SURVEY.md §2: no distributed layer).  Here:
+one process per host, ``jax.distributed`` for the process group, a global
+mesh whose ``env`` axis spans every device of every host, and env batches
+built host-locally then assembled into one global sharded array — XLA
+inserts the collectives (NCCL on GPUs), nothing in the engine changes.
 
 Failure recovery is deterministic restart: the entire training state is one
 pytree (see rware_tpu.checkpoint) and the engine is a pure function of it,
@@ -35,8 +35,8 @@ def initialize(
     Explicit args win; otherwise ``RWARE_COORD_ADDR`` / ``RWARE_NUM_PROCS``
     / ``RWARE_PROC_ID`` configure a manual process group (the localhost
     multi-process harness, tools/multiproc_verify.py, uses these); with
-    neither, Cloud TPU / cluster auto-detection applies when the
-    environment provides it."""
+    neither, JAX's cluster auto-detection applies when the environment
+    provides it."""
     import os
 
     if coordinator_address is None:

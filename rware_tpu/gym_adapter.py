@@ -37,7 +37,7 @@ from rware_tpu.types import (
 
 
 class GymWarehouse(gym.Env):
-    """Stateful Gymnasium view of the TPU-native warehouse."""
+    """Stateful Gymnasium view of the batched JAX warehouse."""
 
     metadata = {"render_modes": ["human", "rgb_array"], "render_fps": 10}
 

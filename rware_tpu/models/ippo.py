@@ -1,12 +1,12 @@
 """IPPO: independent PPO with parameter sharing — the flagship learner.
 
-The reference has no training stack; this is the TPU-native learner the
-RWARE literature runs on it (IPPO as in the SEAC/EPyMARL line of work).
+The reference has no training stack; this is the learner the RWARE
+literature runs on it (IPPO as in the SEAC/EPyMARL line of work).
 Design: the entire train step — T-step rollout (policy + env fused in one
 ``lax.scan``), GAE, and E epochs × M minibatches of clipped-PPO SGD — is ONE
-jitted program over an env-batched state.  Multi-chip: shard the env axis of
-``env_states``/``obs`` over the mesh, replicate params; XLA turns the
-gradient reduction into a psum over ICI (see rware_tpu.parallel.sharding).
+jitted program over an env-batched state.  Multi-device: shard the env axis
+of ``env_states``/``obs`` over the mesh, replicate params; XLA turns the
+gradient reduction into an all-reduce (see rware_tpu.parallel.sharding).
 """
 from __future__ import annotations
 
@@ -16,8 +16,8 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 import jax
 import jax.numpy as jnp
 import optax
-from flax import struct
 
+from rware_tpu import pytree
 from rware_tpu.core.env import Warehouse
 from rware_tpu.core.state import WarehouseState
 from rware_tpu.models.networks import ActorCritic, sample_action
@@ -39,13 +39,13 @@ class IPPOConfig:
     anneal_lr: bool = False
     total_updates: int = 1000  # for lr annealing
     # "shuffle": classic PPO random-permutation minibatches (random-index
-    # gathers cost ~118ms/update at B=4096,T=128 on v5e); "block": a random
-    # per-epoch offset then contiguous slices — sequential HBM reads, ~2.2x
-    # faster updates, minibatches are time-bands over all envs
+    # gathers); "block": a random per-epoch offset then contiguous slices —
+    # sequential reads, minibatches are time-bands over all envs
     minibatch_mode: str = "shuffle"
 
 
-class RunnerState(struct.PyTreeNode):
+@pytree.dataclass
+class RunnerState:
     """Everything the train loop carries between updates."""
 
     params: Any
@@ -227,19 +227,14 @@ def ppo_update_epochs(model, cfg: IPPOConfig, tx, params, opt_state, dataset, ke
     )
 
 
-def make_lr_schedule(cfg: IPPOConfig):
-    """The per-step learning rate as a callable of the optimizer count —
-    the schedule the in-kernel optimizer of
-    ops/pallas_update.build_fused_ppo_update_phase replays exactly."""
-    if cfg.anneal_lr:
-        return optax.linear_schedule(
+def make_optimizer(cfg: IPPOConfig) -> optax.GradientTransformation:
+    sched = (
+        optax.linear_schedule(
             cfg.lr, 0.0, cfg.total_updates * cfg.epochs * cfg.minibatches
         )
-    return lambda count: jnp.full((), cfg.lr, jnp.float32)
-
-
-def make_optimizer(cfg: IPPOConfig) -> optax.GradientTransformation:
-    sched = make_lr_schedule(cfg) if cfg.anneal_lr else cfg.lr
+        if cfg.anneal_lr
+        else cfg.lr
+    )
     return optax.chain(
         optax.clip_by_global_norm(cfg.max_grad_norm),
         optax.adam(sched, eps=1e-5),

@@ -6,24 +6,26 @@ baselines use recurrent policies.  Same fused design as the MLP learner
 carry lives in the runner next to the env states; episode boundaries reset
 it on device.  PPO epochs shuffle ENV indices (sequences stay intact) and
 re-run the GRU over the stored trajectory from the stored initial carry —
-sequence-parallel over the minibatch, time-sequential in a lax.scan, which
-is the TPU-friendly layout (hidden-state matmuls batch over B*N on the MXU).
+sequence-parallel over the minibatch, time-sequential in a lax.scan
+(hidden-state matmuls batch over B*N).
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
 import optax
-from flax import struct
 
+from rware_tpu import pytree
 from rware_tpu.core.env import Warehouse
 from rware_tpu.models.ippo import IPPOConfig, make_optimizer
 from rware_tpu.models.networks import RecurrentActorCritic, sample_action
 
 
-class RNNRunnerState(struct.PyTreeNode):
+@pytree.dataclass
+class RNNRunnerState:
     params: Any
     opt_state: Any
     env_states: Any  # (B, ...)
@@ -245,10 +247,6 @@ def build_rnn_train_step(
     return train_step
 
 
-import functools
-from functools import partial
-
-
 def _gru_cell_fwd(hg, wh, bhn, h, ir_t, iz_t, inn_t, m_t):
     """One GRU step on (N, RB, LANE, Hg) blocks; m_t (1, RB, LANE) is the
     episode-boundary mask AFTER this step.  Returns (carry, new_h)."""
@@ -271,18 +269,15 @@ def _gru_cell_fwd(hg, wh, bhn, h, ir_t, iz_t, inn_t, m_t):
 @partial(jax.custom_vjp, nondiff_argnums=(0,))
 def _gru_scan(hg, wh, bhn, ir, iz, inn, done_mask, h0):
     """Time recurrence of the native GRU replay with a HAND-DERIVED
-    backward (the fused-GRU-backward VERDICT ask, realised at the XLA
-    level).
+    backward.
 
     XLA's scan transpose carries the (Hg, 3Hg) weight-gradient
-    accumulation and every gate residual through the reverse loop, which
-    measured 6x the forward cost (tools/gru_bisect.py: 10 ms vs 1.75 ms
-    per minibatch pass at B=4096).  Here the reverse scan carries ONLY
-    the (N, RB, LANE, Hg) hidden adjoint and emits per-step gate
-    cotangents; every weight/input gradient is then one big MXU dot over
-    all (T x sample) rows outside the loop, and all residuals are
-    recomputed from the function's own inputs/outputs (no extra forward
-    storage).
+    accumulation and every gate residual through the reverse loop.  Here
+    the reverse scan carries ONLY the (N, RB, LANE, Hg) hidden adjoint and
+    emits per-step gate cotangents; every weight/input gradient is then
+    one big dot over all (T x sample) rows outside the loop, and all
+    residuals are recomputed from the function's own inputs/outputs (no
+    extra forward storage).
 
     wh (Hg, 3Hg) bf16 = [W_hr | W_hz | W_hn], bhn (Hg,) f32, gates
     ir/iz/inn (T, N, RB, LANE, Hg) f32, done_mask (T, 1, RB, LANE) bf16,
@@ -384,109 +379,19 @@ def _gru_scan_bwd(hg, res, dhseq):
 _gru_scan.defvjp(_gru_scan_fwd, _gru_scan_bwd)
 
 
-# Which implementation _gru_native_replay uses for the time recurrence:
-#   "auto"              pallas kernels on TPU, the XLA scan on CPU
-#   "xla"               always the XLA scan (custom VJP above)
-#   "pallas"            always the pallas sequence kernels (hardware)
-#   "pallas_interpret"  pallas kernels in interpret mode (CPU tests)
-GRU_SEQ_IMPL = "auto"
-
-
-@functools.lru_cache(maxsize=None)
-def _gru_seq_kernels(t, n, rb, hg, interpret):
-    from rware_tpu.ops.pallas_gru import (
-        build_gru_seq_bwd,
-        build_gru_seq_fwd,
-    )
-
-    return (
-        build_gru_seq_fwd(t, n, rb, hg, interpret=interpret),
-        build_gru_seq_bwd(t, n, rb, hg, interpret=interpret),
-    )
-
-
-def _resolve_gru_impl():
-    impl = GRU_SEQ_IMPL
-    if impl == "auto":
-        impl = "xla" if jax.default_backend() == "cpu" else "pallas"
-    return impl
-
-
-@functools.lru_cache(maxsize=None)
-def _gru_obs_kernels(t, n, rb, hg, emb, lf, interpret):
-    from rware_tpu.ops.pallas_gru import (
-        build_gru_obs_bwd,
-        build_gru_obs_fwd,
-    )
-
-    return (
-        build_gru_obs_fwd(t, n, rb, hg, emb, lf, interpret=interpret),
-        build_gru_obs_bwd(t, n, rb, hg, emb, lf, interpret=interpret),
-    )
-
-
-@partial(jax.custom_vjp, nondiff_argnums=(0, 1))
-def _gru_obs_scan(hg, interpret, we, be, wi, bi, wh, bhn, obs, done_mask,
-                  h0):
-    """Obs-fused time recurrence (ops/pallas_gru.build_gru_obs_fwd/_bwd):
-    the embed and input-gate dots run IN-KERNEL so the e / iall gate
-    streams — ~600 MB of HBM traffic per update pass at B=4096, the
-    dominant XLA segment left by the iall-streaming kernels
-    (tools/gru_bisect.py) — never touch HBM; the backward folds the whole
-    input-side chain (dWi, dWe, de) into the same kernel and emits only
-    weight-gradient blocks.  obs rides in the replay layout
-    (T, N, RB, LANE, L)."""
-    t, n, rb = obs.shape[0], obs.shape[1], obs.shape[2]
-    lf, emb = we.shape
-    fwd, _ = _gru_obs_kernels(t, n, rb, hg, emb, lf, interpret)
-    return fwd(we, be, wi, bi, wh, bhn, obs, done_mask, h0)
-
-
-def _gru_obs_scan_fwd(hg, interpret, we, be, wi, bi, wh, bhn, obs,
-                      done_mask, h0):
-    hseq = _gru_obs_scan(
-        hg, interpret, we, be, wi, bi, wh, bhn, obs, done_mask, h0
-    )
-    return hseq, (we, be, wi, bi, wh, bhn, obs, done_mask, h0, hseq)
-
-
-def _gru_obs_scan_bwd(hg, interpret, res, dhseq):
-    we, be, wi, bi, wh, bhn, obs, done_mask, h0, hseq = res
-    t, n, rb = obs.shape[0], obs.shape[1], obs.shape[2]
-    lf, emb = we.shape
-    _, bwd = _gru_obs_kernels(t, n, rb, hg, emb, lf, interpret)
-    dwe, dbe, dwi, dbi, dwh, dbhn, dh0 = bwd(
-        we, be, wi, bi, wh, bhn, obs, done_mask, h0, hseq, dhseq
-    )
-    return (
-        dwe.astype(we.dtype), dbe.astype(be.dtype),
-        dwi.astype(wi.dtype), dbi.astype(bi.dtype),
-        dwh.astype(wh.dtype), dbhn.astype(bhn.dtype),
-        jnp.zeros_like(obs), jnp.zeros_like(done_mask),
-        dh0.astype(h0.dtype),
-    )
-
-
-_gru_obs_scan.defvjp(_gru_obs_scan_fwd, _gru_obs_scan_bwd)
-
-
 def _gru_native_replay(model: RecurrentActorCritic, params, obs, done, h0):
-    """Replay the GRU over a kernel-native trajectory.
+    """Replay the GRU over a native-layout trajectory.
 
-    On the pallas path the embed and input-gate dots run INSIDE the
-    sequence kernels (_gru_obs_scan): the kernel streams the raw bf16
-    observations (L lanes) instead of the (3Hg)-wide gate tensor, and the
-    backward emits only weight-gradient blocks — the e / iall / d_iall
-    streams (~1.2 GB of HBM round trips per update pass at B=4096) are
-    gone.  The XLA path keeps the batched-gate formulation (single MXU
-    dots over every (t, agent, env) sample, recurrence-only scan).
+    Batched-gate formulation: the embed and input-gate dots run once over
+    every (t, agent, env) sample, and only the hidden recurrence is a scan
+    (_gru_scan, with its hand-derived backward).
 
     obs (T, N, RB, LANE, L) bf16 — the REPLAY layout, features minor
-    (transposed from the collect kernel's (T, L, N, RB, LANE) once per
-    update), done (T, 1, RB, LANE) int32, h0 (N, RB, LANE, Hg).  Returns
+    (transposed from the collected (T, L, N, RB, LANE) once per update),
+    done (T, 1, RB, LANE) int32, h0 (N, RB, LANE, Hg).  Returns
     (logits (T, N, RB, LANE, A), value (T, N, RB, LANE)) — the per-step
-    GRU outputs BEFORE the episode-boundary reset, matching the collect
-    kernel and build_rnn_train_step's replay ordering.
+    GRU outputs BEFORE the episode-boundary reset, matching
+    build_rnn_train_step's replay ordering.
     """
     p = params["params"]
     g = p["gru"]
@@ -500,7 +405,7 @@ def _gru_native_replay(model: RecurrentActorCritic, params, obs, done, h0):
     )
     hg = int(model.hidden)
     # one fused (Hg, 3Hg) hidden contraction per step instead of three:
-    # the T-sequential recurrence is launch-latency bound, not FLOP bound
+    # the T-sequential recurrence is bound by per-step latency, not FLOPs
     wh = jnp.concatenate(
         [
             g["hr"]["kernel"].astype(jnp.bfloat16),
@@ -512,37 +417,27 @@ def _gru_native_replay(model: RecurrentActorCritic, params, obs, done, h0):
     bhn = g["hn"]["bias"]
     done_mask = (done != 0).astype(jnp.bfloat16)
 
-    impl = _resolve_gru_impl()
-    if impl == "xla":
-        e = jax.lax.dot_general(
-            obs.astype(jnp.bfloat16),
-            p["embed"]["kernel"].astype(jnp.bfloat16),
-            (((obs.ndim - 1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )  # (T, N, RB, LANE, E)
-        e = jnp.tanh((e + p["embed"]["bias"]).astype(jnp.bfloat16))
-        iall = jax.lax.dot_general(
-            e, wi.astype(jnp.bfloat16),
-            (((e.ndim - 1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        ) + bi
-        hseq = _gru_scan(
-            hg, wh, bhn,
-            iall[..., :hg], iall[..., hg:2 * hg], iall[..., 2 * hg:],
-            done_mask, h0.astype(jnp.bfloat16),
-        )
-    else:
-        hseq = _gru_obs_scan(
-            hg, impl == "pallas_interpret",
-            p["embed"]["kernel"], p["embed"]["bias"],
-            wi, bi, wh, bhn,
-            obs.astype(jnp.bfloat16), done_mask,
-            h0.astype(jnp.bfloat16),
-        )  # (T, N, RB, LANE, Hg)
-    # head dots straight on the bf16 hidden (f32 accumulation): the f32
-    # hseq cast was an hseq-sized HBM materialisation per pass; the bf16
-    # weight rounding costs ~3 decimal digits on logits, inside the bf16
-    # noise the rest of the pipeline already carries
+    e = jax.lax.dot_general(
+        obs.astype(jnp.bfloat16),
+        p["embed"]["kernel"].astype(jnp.bfloat16),
+        (((obs.ndim - 1,), (0,)), ((), ())),
+        preferred_element_type=jnp.float32,
+    )  # (T, N, RB, LANE, E)
+    e = jnp.tanh((e + p["embed"]["bias"]).astype(jnp.bfloat16))
+    iall = jax.lax.dot_general(
+        e, wi.astype(jnp.bfloat16),
+        (((e.ndim - 1,), (0,)), ((), ())),
+        preferred_element_type=jnp.float32,
+    ) + bi
+    hseq = _gru_scan(
+        hg, wh, bhn,
+        iall[..., :hg], iall[..., hg:2 * hg], iall[..., 2 * hg:],
+        done_mask, h0.astype(jnp.bfloat16),
+    )  # (T, N, RB, LANE, Hg)
+    # head dots straight on the bf16 hidden (f32 accumulation): no
+    # hseq-sized f32 copy per pass; the bf16 weight rounding costs ~3
+    # decimal digits on logits, inside the bf16 noise the rest of the
+    # pipeline already carries
     heads_w = [p["policy"]["kernel"], p["value"]["kernel"]]
     if "message" in p:
         heads_w.append(p["message"]["kernel"])
@@ -558,503 +453,3 @@ def _gru_native_replay(model: RecurrentActorCritic, params, obs, done, h0):
         msg_logits = heads[..., a + 1:] + p["message"]["bias"]
         return (logits, msg_logits), value
     return logits, value
-
-
-def _pick_tc_len_gru_default(t: int) -> int:
-    # The GRU carry block (Hg, N, RB, LANE) costs ~2MB of scoped VMEM
-    # on top of the MLP collector's budget, which overflows the 16MB
-    # limit at tc=8 (measured: 17.74M at B=4096).  tc=4 halves the obs
-    # trajectory block and fits.
-    for tc in (4, 2, 1):
-        if t % tc == 0:
-            return tc
-    return 1
-
-
-def rnn_ppo_loss_native(cfg: IPPOConfig, model, params, batch):
-    """Clipped-PPO loss over a kernel-native recurrent minibatch.
-
-    ``batch`` = (obs (T, N, RB, LANE, L) bf16 — replay layout, done,
-    action, logp_old,
-    value_old, adv, target ((T, N, RB, LANE)), h0n (N, RB, LANE, Hg)) —
-    an env-band slice of the collect kernel's trajectory.  The GRU is
-    replayed via _gru_native_replay (batched input gates, scan-only
-    recurrence).  A 9th entry (message bits, (T, N*M, RB, LANE)
-    agent-major rows) switches to the joint move+Bernoulli policy —
-    joint ratio and joint entropy, matching the GRU collect kernel's
-    stored logp (the recurrent analogue of ppo_loss_native's msg mode)."""
-    bits = None
-    if len(batch) == 9:
-        (obs, done, action, logp_old, value_old, adv, target, h0n,
-         bits) = batch
-    else:
-        obs, done, action, logp_old, value_old, adv, target, h0n = batch
-    heads, value = _gru_native_replay(model, params, obs, done, h0n)
-    from rware_tpu.models.ippo_pallas import clipped_ppo_terms
-
-    return clipped_ppo_terms(
-        cfg, heads, value, action, logp_old, value_old, adv, target, bits
-    )
-
-
-@functools.lru_cache(maxsize=None)
-def _gru_loss_kernel(t, n, rb, hg, a, clip_eps, vf_coef, ent_coef,
-                     interpret):
-    from rware_tpu.ops.pallas_gru import build_gru_loss_bwd
-
-    return build_gru_loss_bwd(
-        t, n, rb, hg, a, clip_eps, vf_coef, ent_coef, interpret=interpret
-    )
-
-
-def rnn_fused_grads(cfg: IPPOConfig, model, params, batch,
-                    interpret: bool = False):
-    """Hand-derived gradients of rnn_ppo_loss_native with BOTH sequence
-    sweeps in Pallas: the forward recurrence (build_gru_seq_fwd) and the
-    loss-fused backward (build_gru_loss_bwd — heads, clipped-PPO loss and
-    the GRU reverse chain in-kernel).  The only XLA segments left per
-    minibatch pass are the embed/input-gate forward dots and their
-    hand-derived backward (three MXU dots).  Returns (grads, metrics);
-    equivalence vs jax.grad of rnn_ppo_loss_native is tested in
-    interpret mode (tests/test_pallas_gru.py)."""
-    obs, done, action, logp_old, value_old, adv, target, h0n = batch
-    p = params["params"]
-    g = p["gru"]
-    hg = int(model.hidden)
-
-    def big(x, w):
-        return jax.lax.dot_general(
-            x, w.astype(jnp.bfloat16),
-            (((x.ndim - 1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-
-    e = jax.lax.dot_general(
-        obs.astype(jnp.bfloat16),
-        p["embed"]["kernel"].astype(jnp.bfloat16),
-        (((obs.ndim - 1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )  # (T, N, RB, LANE, E)
-    e = jnp.tanh((e + p["embed"]["bias"]).astype(jnp.bfloat16))
-    wi = jnp.concatenate(
-        [g["ir"]["kernel"], g["iz"]["kernel"], g["in"]["kernel"]], axis=1
-    )
-    bi = jnp.concatenate(
-        [g["ir"]["bias"], g["iz"]["bias"], g["in"]["bias"]], axis=0
-    )
-    iall = (big(e, wi) + bi).astype(jnp.bfloat16)
-    wh = jnp.concatenate(
-        [
-            g["hr"]["kernel"].astype(jnp.bfloat16),
-            g["hz"]["kernel"].astype(jnp.bfloat16),
-            g["hn"]["kernel"].astype(jnp.bfloat16),
-        ],
-        axis=1,
-    )
-    bhn = g["hn"]["bias"]
-    t, n, rb = iall.shape[0], iall.shape[1], iall.shape[2]
-    done_mask = (done != 0).astype(jnp.bfloat16)
-    h0b = h0n.astype(jnp.bfloat16)
-    fwd, _ = _gru_seq_kernels(t, n, rb, hg, interpret)
-    hseq = fwd(wh, bhn, iall, done_mask, h0b)
-
-    a = int(model.n_actions)
-    whead = jnp.concatenate(
-        [p["policy"]["kernel"], p["value"]["kernel"]], axis=1
-    ).astype(jnp.float32)  # (Hg, A+1)
-    bhead = jnp.concatenate(
-        [p["policy"]["bias"], p["value"]["bias"]], axis=0
-    ).astype(jnp.float32)
-    advf = adv.astype(jnp.float32)
-    stats = jnp.stack([advf.mean(), 1.0 / (advf.std() + 1e-8)])
-    loss_bwd = _gru_loss_kernel(
-        t, n, rb, hg, a, float(cfg.clip_eps), float(cfg.vf_coef),
-        float(cfg.ent_coef), interpret,
-    )
-    d_iall, dwh, dbhn, dwhead, dbhead, _dh0, mets = loss_bwd(
-        wh, bhn, whead, bhead, iall, done_mask, h0b, hseq,
-        action, logp_old, value_old, adv, target, stats,
-    )
-
-    # ---- embed / input-gate backward: three MXU dots, hand-derived ----
-    emb = e.shape[-1]
-    e2 = e.reshape(-1, emb)
-    dg2 = d_iall.reshape(-1, 3 * hg)
-    dwi = jax.lax.dot_general(
-        e2, dg2, (((0,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )  # (E, 3Hg)
-    dbi = jnp.sum(dg2.astype(jnp.float32), axis=0)
-    de = jax.lax.dot_general(
-        dg2, wi.astype(jnp.bfloat16), (((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )  # (-1, E)
-    ef = e2.astype(jnp.float32)
-    dpre = (de * (1.0 - ef * ef)).astype(jnp.bfloat16)
-    dpre5 = dpre.reshape(e.shape)
-    dwe = jax.lax.dot_general(
-        obs.astype(jnp.bfloat16), dpre5,
-        (((0, 1, 2, 3), (0, 1, 2, 3)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )  # (L, E)
-    dbe = jnp.sum(dpre.astype(jnp.float32), axis=0)
-
-    def like(x, ref):
-        return x.astype(ref.dtype)
-
-    grads = {
-        "params": {
-            "embed": {
-                "kernel": like(dwe, p["embed"]["kernel"]),
-                "bias": like(dbe, p["embed"]["bias"]),
-            },
-            "gru": {
-                "ir": {"kernel": like(dwi[:, :hg], g["ir"]["kernel"]),
-                       "bias": like(dbi[:hg], g["ir"]["bias"])},
-                "iz": {"kernel": like(dwi[:, hg:2 * hg],
-                                      g["iz"]["kernel"]),
-                       "bias": like(dbi[hg:2 * hg], g["iz"]["bias"])},
-                "in": {"kernel": like(dwi[:, 2 * hg:], g["in"]["kernel"]),
-                       "bias": like(dbi[2 * hg:], g["in"]["bias"])},
-                "hr": {"kernel": like(dwh[:, :hg], g["hr"]["kernel"])},
-                "hz": {"kernel": like(dwh[:, hg:2 * hg],
-                                      g["hz"]["kernel"])},
-                "hn": {"kernel": like(dwh[:, 2 * hg:], g["hn"]["kernel"]),
-                       "bias": like(dbhn, g["hn"]["bias"])},
-            },
-            "policy": {
-                "kernel": like(dwhead[:, :a], p["policy"]["kernel"]),
-                "bias": like(dbhead[0, :a], p["policy"]["bias"]),
-            },
-            "value": {
-                "kernel": like(dwhead[:, a:], p["value"]["kernel"]),
-                "bias": like(dbhead[0, a:], p["value"]["bias"]),
-            },
-        }
-    }
-    inv_n = 1.0 / (t * n * rb * iall.shape[3])
-    metrics = {
-        "pg_loss": -mets[0] * inv_n,
-        "v_loss": mets[1] * inv_n,
-        "entropy": mets[2] * inv_n,
-        "approx_kl": mets[3] * inv_n,
-    }
-    return grads, metrics
-
-
-def build_rnn_pallas_train_step(
-    env: Warehouse,
-    model: RecurrentActorCritic,
-    tx: optax.GradientTransformation,
-    cfg: IPPOConfig,
-    interpret: bool = False,
-    deterministic_collect: bool = False,
-    native: bool = True,
-    fused_loss: bool = False,
-    mesh=None,
-    mesh_axis: str = "env",
-) -> Callable[[RNNRunnerState], Tuple[RNNRunnerState, dict]]:
-    """Recurrent IPPO with the GRU fused INTO the collect kernel.
-
-    The rollout — observations, embed+GRU forward, sampling, env step and
-    the episode-boundary carry reset — runs inside the Pallas kernel
-    (ops/pallas_rollout.build_pallas_collect(policy="gru")).
-
-    ``native=True`` (default) runs GAE + the PPO update directly on the
-    kernel-native tiled trajectory: batched embed/gate matmuls via
-    _gru_native_replay, contiguous env-band minibatches (no index
-    gathers), bf16 obs end-to-end.  ``native=False`` keeps the round-2
-    friendly-layout path (env-gather minibatches + per-step model.apply
-    replay), retained for comparison.
-    """
-    from rware_tpu.ops.pallas_rollout import ENV_BLOCK, build_pallas_collect
-
-    _pick_tc_len_gru = _pick_tc_len_gru_default
-
-    hidden = (int(model.embed), int(model.hidden))
-    collect = build_pallas_collect(
-        env.config,
-        cfg.rollout_len,
-        hidden=hidden,
-        tc_len=_pick_tc_len_gru(cfg.rollout_len),
-        interpret=interpret,
-        deterministic=deterministic_collect,
-        policy="gru",
-        native_traj=native,
-    )
-    from rware_tpu.models.ippo import policy_obs_fn
-
-    obs_fn = jax.vmap(policy_obs_fn(env))
-    n_tc = max(1, cfg.rollout_len // _pick_tc_len_gru(cfg.rollout_len))
-    streams_per_update = (cfg.n_envs // ENV_BLOCK) * n_tc
-    from rware_tpu.ops.pallas_rollout import LANE
-
-    n_agents = env.n_agents
-    hg = int(model.hidden)
-    n_shards = int(mesh.shape[mesh_axis]) if mesh is not None else 1
-    n_local = cfg.n_envs // n_shards
-    streams_per_shard = (n_local // ENV_BLOCK) * n_tc
-    axis_name = mesh_axis if mesh is not None else None
-
-    def loss_fn_native(params, batch):
-        return rnn_ppo_loss_native(cfg, model, params, batch)
-
-    # rb-axis position per native dataset entry:
-    # (obs [replay layout], done, action, logp, value, adv, target,
-    #  h0n[, bits])
-    _NATIVE_RB_AXES = (2, 2, 2, 2, 2, 2, 2, 1, 2)[
-        : 9 if env.config.msg_bits else 8
-    ]
-
-    def train_step_native(runner: RNNRunnerState):
-        key, k_perm = jax.random.split(runner.key, 2)
-        seed = runner.update_idx * jnp.int32(streams_per_update)
-        if axis_name is not None:
-            # disjoint per-shard PRNG streams (the kernel offsets by its
-            # local program_id, which restarts at 0 on every shard)
-            seed = seed + jax.lax.axis_index(axis_name) * jnp.int32(
-                streams_per_shard
-            )
-        h0 = runner.carry  # (B_local, N, Hg) — carry at rollout start
-        env_states, new_carry, traj = collect(
-            runner.env_states, runner.params, seed, h0=h0
-        )
-        obs = obs_fn(env_states)
-        _, (_, last_value) = model.apply(
-            runner.params, new_carry.astype(runner.carry.dtype), obs
-        )  # (B_local, N)
-        rb = n_local // LANE
-        last_value_native = jnp.swapaxes(last_value, 0, 1).reshape(
-            n_agents, rb, LANE
-        )
-        from rware_tpu.models.ippo_pallas import compute_gae_native
-
-        advantages, targets = compute_gae_native(
-            cfg, traj["reward"], traj["value"], traj["done"],
-            last_value_native,
-        )
-        # carry at rollout start in the replay layout (N, RB, LANE, Hg)
-        h0n = jnp.transpose(h0, (1, 0, 2)).reshape(n_agents, rb, LANE, hg)
-        # obs into the replay layout (T, N, RB, LANE, L) — one relayout
-        # per update, amortised over epochs x minibatches passes; the
-        # obs-fused sequence kernels then stream raw observations and
-        # keep the e / iall gate tensors in VMEM (ops/pallas_gru)
-        obs_replay = jnp.transpose(traj["obs"], (0, 2, 3, 4, 1))
-        dataset = (
-            obs_replay, traj["done"], traj["action"], traj["logp"],
-            traj["value"], advantages, targets, h0n,
-        )
-        if "bits" in traj:
-            dataset = dataset + (traj["bits"],)
-        if rb % cfg.minibatches:
-            raise ValueError(
-                f"minibatches={cfg.minibatches} must divide the {rb} env "
-                f"rows (n_envs / {LANE})"
-            )
-        mb = rb // cfg.minibatches
-
-        # Wrapped env-band minibatches WITHOUT the per-epoch jnp.roll: the
-        # dataset is self-concatenated once along the env-row axis and every
-        # minibatch is a plain dynamic slice of the doubled extent at
-        # (i*mb - off) % rb — the identical window roll(off)+slice produced,
-        # for one dataset copy per update instead of one per epoch (the 4
-        # rolls measured 13.5 ms of the 64 ms step at B=4096;
-        # tools/gru_bisect.py stage E vs G).
-        doubled = tuple(
-            jnp.concatenate([x, x], axis=ax)
-            for x, ax in zip(dataset, _NATIVE_RB_AXES)
-        )
-
-        def epoch(carry_es, k):
-            params, opt_state = carry_es
-            off = jax.random.randint(k, (), 0, rb)
-
-            def minibatch(carry_es, i):
-                params, opt_state = carry_es
-                start = (i * mb - off) % rb
-                batch = tuple(
-                    jax.lax.dynamic_slice_in_dim(x, start, mb, ax)
-                    for x, ax in zip(doubled, _NATIVE_RB_AXES)
-                )
-                if (fused_loss and _resolve_gru_impl() != "xla"
-                        and len(batch) == 8):
-                    # both sequence sweeps in Pallas, loss fused into the
-                    # backward kernel; hand-derived embed/gate backward.
-                    # NOT the default: on v5e the extra per-cell input
-                    # streams (5 loss scalars + heads) measured SLOWER
-                    # than the XLA head/loss segments they replace
-                    # (97.5 vs 66.0 ms/step at B=4096) — kept as a
-                    # tested option for hardware where stream setup is
-                    # cheaper.
-                    grads, metrics = rnn_fused_grads(
-                        cfg, model, params, batch,
-                        interpret=_resolve_gru_impl()
-                        == "pallas_interpret",
-                    )
-                else:
-                    (loss, metrics), grads = jax.value_and_grad(
-                        loss_fn_native, has_aux=True
-                    )(params, batch)
-                if axis_name is not None:
-                    # data-parallel recurrent PPO: every shard takes the
-                    # identical parameter step
-                    grads = jax.lax.pmean(grads, axis_name)
-                    metrics = jax.lax.pmean(metrics, axis_name)
-                updates, opt_state = tx.update(grads, opt_state, params)
-                params = optax.apply_updates(params, updates)
-                return (params, opt_state), metrics
-
-            return jax.lax.scan(
-                minibatch, (params, opt_state), jnp.arange(cfg.minibatches)
-            )
-
-        (params, opt_state), metrics = jax.lax.scan(
-            epoch,
-            (runner.params, runner.opt_state),
-            jax.random.split(k_perm, cfg.epochs),
-        )
-        reward_sum = traj["reward"].sum()
-        episodes = traj["done"].sum()
-        if axis_name is not None:
-            reward_sum = jax.lax.psum(reward_sum, axis_name)
-            episodes = jax.lax.psum(episodes, axis_name)
-        out_metrics = {
-            "reward_per_env": reward_sum / cfg.n_envs,
-            "episodes_done": episodes,
-            **jax.tree.map(lambda x: x.mean(), metrics),
-        }
-        return (
-            RNNRunnerState(
-                params=params,
-                opt_state=opt_state,
-                env_states=env_states,
-                obs=obs,
-                carry=new_carry.astype(runner.carry.dtype),
-                key=key,
-                update_idx=runner.update_idx + 1,
-            ),
-            out_metrics,
-        )
-
-    def loss_fn(params, batch):
-        obs, done, action, logp_old, value_old, adv, target, h0 = batch
-
-        def replay(carry, xs):
-            o, d = xs
-            new_carry, (logits, value) = model.apply(params, carry, o)
-            new_carry = jnp.where(
-                d[:, None, None], jnp.zeros_like(new_carry), new_carry
-            )
-            return new_carry, (logits, value)
-
-        _, (logits, value) = jax.lax.scan(replay, h0, (obs, done))
-        logp_all = jax.nn.log_softmax(logits)
-        logp = jnp.take_along_axis(
-            logp_all, action[..., None], -1
-        ).squeeze(-1)
-        ratio = jnp.exp(logp - logp_old)
-        adv_norm = (adv - adv.mean()) / (adv.std() + 1e-8)
-        pg1 = ratio * adv_norm
-        pg2 = jnp.clip(ratio, 1 - cfg.clip_eps, 1 + cfg.clip_eps) * adv_norm
-        pg_loss = -jnp.minimum(pg1, pg2).mean()
-        v_clipped = value_old + jnp.clip(
-            value - value_old, -cfg.clip_eps, cfg.clip_eps
-        )
-        v_loss = 0.5 * jnp.maximum(
-            (value - target) ** 2, (v_clipped - target) ** 2
-        ).mean()
-        entropy = -(jnp.exp(logp_all) * logp_all).sum(-1).mean()
-        total = pg_loss + cfg.vf_coef * v_loss - cfg.ent_coef * entropy
-        return total, {
-            "pg_loss": pg_loss,
-            "v_loss": v_loss,
-            "entropy": entropy,
-            "approx_kl": ((ratio - 1) - jnp.log(ratio)).mean(),
-        }
-
-    def train_step(runner: RNNRunnerState) -> Tuple[RNNRunnerState, dict]:
-        key, k_perm = jax.random.split(runner.key, 2)
-        seed = runner.update_idx * jnp.int32(streams_per_update)
-        h0 = runner.carry  # (B, N, H) — carry at rollout start
-        env_states, new_carry, traj = collect(
-            runner.env_states, runner.params, seed, h0=h0
-        )
-        obs = obs_fn(env_states)
-        _, (_, last_value) = model.apply(
-            runner.params, new_carry.astype(runner.carry.dtype), obs
-        )
-
-        from rware_tpu.models.ippo import compute_gae
-
-        advantages, targets = compute_gae(
-            cfg, traj["reward"], traj["value"], traj["done"], last_value
-        )
-
-        obs_f = traj["obs"].astype(jnp.float32)
-        dataset = (
-            obs_f, traj["done"], traj["action"], traj["logp"],
-            traj["value"], advantages, targets,
-        )
-        mb_envs = cfg.n_envs // cfg.minibatches
-
-        def epoch(carry_es, key):
-            params, opt_state = carry_es
-            perm = jax.random.permutation(key, cfg.n_envs)
-
-            def minibatch(carry_es, idx):
-                params, opt_state = carry_es
-                batch = tuple(
-                    jnp.take(x, idx, axis=1) for x in dataset
-                ) + (jnp.take(h0.astype(runner.carry.dtype), idx, axis=0),)
-                (loss, metrics), grads = jax.value_and_grad(
-                    loss_fn, has_aux=True
-                )(params, batch)
-                updates, opt_state = tx.update(grads, opt_state, params)
-                params = optax.apply_updates(params, updates)
-                return (params, opt_state), metrics
-
-            idxs = perm[: mb_envs * cfg.minibatches].reshape(
-                cfg.minibatches, mb_envs
-            )
-            return jax.lax.scan(minibatch, (params, opt_state), idxs)
-
-        (params, opt_state), metrics = jax.lax.scan(
-            epoch,
-            (runner.params, runner.opt_state),
-            jax.random.split(k_perm, cfg.epochs),
-        )
-        out_metrics = {
-            "reward_per_env": traj["reward"].sum() / cfg.n_envs,
-            "episodes_done": traj["done"].sum(),
-            **jax.tree.map(lambda x: x.mean(), metrics),
-        }
-        return (
-            RNNRunnerState(
-                params=params,
-                opt_state=opt_state,
-                env_states=env_states,
-                obs=obs,
-                carry=new_carry.astype(runner.carry.dtype),
-                key=key,
-                update_idx=runner.update_idx + 1,
-            ),
-            out_metrics,
-        )
-
-    if mesh is None:
-        return train_step_native if native else train_step
-    if not native:
-        raise ValueError("mesh sharding requires the native path")
-    if n_local % ENV_BLOCK:
-        raise ValueError(
-            f"n_envs={cfg.n_envs} over {n_shards} shards gives {n_local} "
-            f"local envs; must be a multiple of ENV_BLOCK={ENV_BLOCK}"
-        )
-    from rware_tpu.parallel import shard_map_train_step
-
-    return shard_map_train_step(
-        train_step_native, mesh,
-        RNNRunnerState(params=None, opt_state=None, env_states=None,
-                       obs=None, carry=None, key=None, update_idx=None),
-        env_fields=("env_states", "obs", "carry"), axis=mesh_axis,
-    )

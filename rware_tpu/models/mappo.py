@@ -1,20 +1,18 @@
-"""MAPPO: centralized-critic PPO over the fused Pallas collect path.
+"""MAPPO: centralized-critic PPO, with an MLP or a GRU actor.
 
 The other standard PPO baseline the RWARE literature runs (MAPPO, Yu et
 al. 2022; EPyMARL's strongest config): decentralized shared-parameter
-actors — the same in-kernel MLP policy the IPPO collect kernel executes —
-plus a CENTRALIZED critic that conditions on the concatenation of every
-agent's observation (centralized training, decentralized execution).
+actors plus a CENTRALIZED critic that conditions on the concatenation of
+every agent's observation (centralized training, decentralized execution).
 
-TPU shape: the collect kernel (ops/pallas_rollout) runs obs+policy+env
-in-kernel exactly as for IPPO; the actor's local value head is simply
-unused.  Critic values are then computed over the STORED native-layout
-trajectory in one batched MXU dot per update — the joint-obs axis is
-assembled by a transpose+reshape of the kernel's (T, L, N, RB, LANE) obs
-block, and the critic contraction `(T*RB*LANE, N*L) @ (N*L, H)` is a
-bigger, MXU-friendlier matmul than the per-agent policy's.  GAE and the
-clipped update run on the native layout via the shared IPPO machinery
-(compute_gae_native / ppo_update_epochs_native).
+Trajectory layout: the collector stores the rollout in a "native" layout
+that keeps the env batch B = RB * LANE as the two minor axes — obs
+(T, L, N, RB, LANE), per-agent tensors (T, N, RB, LANE), done
+(T, 1, RB, LANE).  Critic values over the stored trajectory are one
+batched dot per update: the joint-obs axis is a transpose+reshape of the
+obs block (_joint_native).  GAE and the clipped update run on the same
+layout, and each minibatch is a contiguous slice — a time window (MLP
+actor) or a band of env rows (GRU actor, whose replay cannot slice time).
 
 The reference ships no training code (SURVEY.md §2); this learner is
 framework-added capability alongside IPPO/SEAC.
@@ -34,15 +32,77 @@ from rware_tpu.models.ippo import (
     make_optimizer,
     policy_obs_fn,
 )
-from rware_tpu.models.ippo_pallas import (
-    _native_forward,
-    _native_trunk,
-    _pick_tc_len,
-    clipped_ppo_terms,
-    compute_gae_native,
-    ppo_update_epochs_native,
+from rware_tpu.models.ippo_rnn import RNNRunnerState, _gru_native_replay
+from rware_tpu.models.networks import (
+    ActorCritic,
+    CentralCritic,
+    RecurrentActorCritic,
+    bernoulli_logp,
+    sample_action,
+    sample_action_msg,
 )
-from rware_tpu.models.networks import ActorCritic, CentralCritic
+from rware_tpu.parallel.rollout import autoreset_select
+
+# minor extent of the native trajectory layout: n_envs must be a multiple
+LANE = 128
+
+
+def _native_trunk(p, obs, contract_axis):
+    """Dense-stack (dense_0, dense_1, ...) walker on native-layout inputs:
+    contracts ``contract_axis`` of ``obs`` against dense_0 without
+    materialising a transposed copy, bf16 hidden compute with f32
+    accumulation and bf16-rounded tanh pre-activations.  Shared by the
+    actor (_native_forward) and the CentralCritic (_critic_native_forward).
+    Returns the f32 trunk output with the contracted axis moved to the
+    end."""
+    x = jax.lax.dot_general(
+        obs.astype(jnp.bfloat16),
+        p["dense_0"]["kernel"].astype(jnp.bfloat16),
+        (((contract_axis,), (0,)), ((), ())),
+        preferred_element_type=jnp.float32,
+    )
+    x = jnp.tanh((x + p["dense_0"]["bias"]).astype(jnp.bfloat16))
+    i = 1
+    while f"dense_{i}" in p:
+        d = p[f"dense_{i}"]
+        x = jax.lax.dot_general(
+            x,
+            d["kernel"].astype(jnp.bfloat16),
+            (((x.ndim - 1,), (0,)), ((), ())),
+            preferred_element_type=jnp.float32,
+        )
+        x = jnp.tanh((x + d["bias"]).astype(jnp.bfloat16))
+        i += 1
+    return x.astype(jnp.float32)
+
+
+def _native_forward(params, obs):
+    """ActorCritic forward on native-layout obs (..., L, N, RB, LANE).
+
+    Contracts the L axis (axis -4) against dense_0; hidden compute bf16
+    with f32 accumulation + f32 heads, as models.networks.ActorCritic.
+    Returns logits (..., N, RB, LANE, A) f32 and value (..., N, RB, LANE)
+    f32 (plus message logits for msg configs, as ``apply`` does).
+    """
+    p = params["params"]
+    xf = _native_trunk(p, obs, obs.ndim - 4)
+
+    def head(name):
+        return (
+            jax.lax.dot_general(
+                xf,
+                p[name]["kernel"].astype(jnp.float32),
+                (((xf.ndim - 1,), (0,)), ((), ())),
+                preferred_element_type=jnp.float32,
+            )
+            + p[name]["bias"]
+        )
+
+    logits = head("policy")
+    value = jnp.squeeze(head("value"), axis=-1)
+    if "message" in p:
+        return (logits, head("message")), value
+    return logits, value
 
 
 def _joint_native(obs: jax.Array) -> jax.Array:
@@ -54,9 +114,8 @@ def _joint_native(obs: jax.Array) -> jax.Array:
 
 def _critic_native_forward(critic_params, joint_obs: jax.Array) -> jax.Array:
     """CentralCritic forward on native-layout joint obs (T, N*L, RB, LANE):
-    the shared dense-stack walker (ippo_pallas._native_trunk) contracting
-    the joint-feature axis in place, then the f32 per-agent value head.
-    Returns (T, N, RB, LANE) f32."""
+    the dense-stack walker contracting the joint-feature axis in place,
+    then the f32 per-agent value head.  Returns (T, N, RB, LANE) f32."""
     p = critic_params["params"]
     x = _native_trunk(p, joint_obs, 1)  # (T, RB, LANE, H)
     v = jax.lax.dot_general(
@@ -68,52 +127,149 @@ def _critic_native_forward(critic_params, joint_obs: jax.Array) -> jax.Array:
     return jnp.moveaxis(v, -1, 1)
 
 
-def _joint_rowmajor(obs: jax.Array) -> jax.Array:
-    """Native-layout obs (T, L, N, RB, LANE) -> row-major joint rows
-    (T, RB, LANE, N*L), agent-major features MINOR.  One full relayout
-    per update so that every critic matmul afterwards contracts the
-    minor axis — MXU-native, no per-pass transposes.  The (T, N*L, RB,
-    LANE) form (_joint_native) keeps LANE minor and forces XLA to copy
-    each minibatch window into contraction layout inside every one of
-    the E x M passes: bisected at 47.7 ms per update phase at B=16384
-    vs 4.9 ms at B=4096 (tools/mappo_bisect.py stage D)."""
-    t, l, n, rb, lane = obs.shape
-    return jnp.transpose(obs, (0, 3, 4, 2, 1)).reshape(t, rb, lane, n * l)
+def compute_gae_native(cfg: IPPOConfig, reward, value, done, last_value):
+    """GAE on native-layout tensors: reward/value (T, N, RB, LANE), done
+    (T, 1, RB, LANE) int32, last_value (N, RB, LANE)."""
+
+    def body(carry, xs):
+        g, next_v = carry
+        r, v, d = xs
+        not_done = 1.0 - d.astype(jnp.float32)  # (1, RB, LANE) broadcasts on N
+        delta = r + cfg.gamma * next_v * not_done - v
+        g = delta + cfg.gamma * cfg.gae_lambda * not_done * g
+        return (g, v), g
+
+    (_, _), advantages = jax.lax.scan(
+        body,
+        (jnp.zeros_like(last_value), last_value),
+        (reward, value, done),
+        reverse=True,
+    )
+    return advantages, advantages + value
 
 
-def _critic_rowmajor_forward(critic_params, joint: jax.Array) -> jax.Array:
-    """CentralCritic forward on row-major joint obs (T, RB, LANE, N*L):
-    every dot contracts the minor axis.  Returns (T, N, RB, LANE) f32 —
-    identical math to _critic_native_forward (same bf16 dot recipe),
-    only the input layout differs."""
-    p = critic_params["params"]
-    x = _native_trunk(p, joint, joint.ndim - 1)  # (T, RB, LANE, H)
-    v = jax.lax.dot_general(
-        x,
-        p["value"]["kernel"].astype(jnp.float32),
-        (((x.ndim - 1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    ) + p["value"]["bias"]  # (T, RB, LANE, N)
-    return jnp.transpose(v, (0, 3, 1, 2))
+def clipped_ppo_terms(cfg: IPPOConfig, heads, value,
+                      action, old_logp, old_value, adv, target, bits=None):
+    """The clipped-PPO objective on native-layout tensors, given the
+    policy heads and the central critic's value.
+
+    ``bits`` (message bits, (T, N*M, RB, LANE) agent-major rows i*M + m)
+    switches to the joint move+Bernoulli policy: joint ratio and joint
+    entropy, matching the collector's stored logp."""
+    msg_entropy = 0.0
+    if bits is not None:
+        logits, msg_logits = heads  # msg_logits (T, N, RB, LANE, M)
+        t, nm, rb, lane = bits.shape
+        n = action.shape[1]
+        bitsf = jnp.moveaxis(
+            bits.reshape(t, n, nm // n, rb, lane), 2, -1
+        ).astype(jnp.float32)  # (T, N, RB, LANE, M)
+        logp_msg = bernoulli_logp(msg_logits, bitsf).sum(-1)
+        p_msg = jax.nn.sigmoid(msg_logits)
+        msg_entropy = -(
+            p_msg * jax.nn.log_sigmoid(msg_logits)
+            + (1.0 - p_msg) * jax.nn.log_sigmoid(-msg_logits)
+        ).sum(-1)
+    else:
+        logits = heads
+    logp_all = jax.nn.log_softmax(logits)
+    onehot = (
+        jax.lax.broadcasted_iota(jnp.int32, logits.shape, logits.ndim - 1)
+        == action[..., None]
+    )
+    logp = jnp.sum(jnp.where(onehot, logp_all, 0.0), axis=-1)
+    if bits is not None:
+        logp = logp + logp_msg
+    ratio = jnp.exp(logp - old_logp)
+    adv_norm = (adv - adv.mean()) / (adv.std() + 1e-8)
+    pg1 = ratio * adv_norm
+    pg2 = jnp.clip(ratio, 1 - cfg.clip_eps, 1 + cfg.clip_eps) * adv_norm
+    pg_loss = -jnp.minimum(pg1, pg2).mean()
+
+    v_clipped = old_value + jnp.clip(
+        value - old_value, -cfg.clip_eps, cfg.clip_eps
+    )
+    v_loss = 0.5 * jnp.maximum(
+        (value - target) ** 2, (v_clipped - target) ** 2
+    ).mean()
+
+    entropy = (-(jnp.exp(logp_all) * logp_all).sum(-1) + msg_entropy).mean()
+    total = pg_loss + cfg.vf_coef * v_loss - cfg.ent_coef * entropy
+    return total, {
+        "pg_loss": pg_loss,
+        "v_loss": v_loss,
+        "entropy": entropy,
+        "approx_kl": ((ratio - 1) - jnp.log(ratio)).mean(),
+    }
 
 
 def mappo_loss_native(cfg: IPPOConfig, params, batch):
-    """Clipped MAPPO loss on a native-layout minibatch.
+    """Clipped MAPPO loss on a native-layout minibatch
+    (obs, action, logp, value, adv, target[, bits]).
 
-    ``params`` = {"actor": ..., "critic": ...}; the policy term matches
-    ippo_pallas.ppo_loss_native (incl. the optional 7th msg-bits entry);
-    the value term evaluates the CENTRAL critic on the joint observation
-    rows.  ``old_value``/``adv``/``target`` in the batch are critic-based
-    (the actor's local value head takes no part in MAPPO)."""
-    bits = None
-    if len(batch) == 7:
-        obs, action, old_logp, old_value, adv, target, bits = batch
-    else:
-        obs, action, old_logp, old_value, adv, target = batch
+    ``params`` = {"actor": ..., "critic": ...}; the policy term uses the
+    actor, the value term the CENTRAL critic on the joint observation
+    rows.  ``old_value``/``adv``/``target`` are critic-based (the actor's
+    local value head takes no part in MAPPO)."""
+    obs, action, old_logp, old_value, adv, target, *bits = batch
     heads, _ = _native_forward(params["actor"], obs)
     value = _critic_native_forward(params["critic"], _joint_native(obs))
     return clipped_ppo_terms(
-        cfg, heads, value, action, old_logp, old_value, adv, target, bits
+        cfg, heads, value, action, old_logp, old_value, adv, target,
+        bits[0] if bits else None,
+    )
+
+
+def rnn_mappo_loss_native(cfg: IPPOConfig, actor, params, batch):
+    """Clipped recurrent-MAPPO loss on an env-band minibatch
+    (obs, action, logp, value, adv, target, done, h0n[, bits]): the GRU
+    actor replays the band from its carry at rollout start h0n
+    (N, RB, LANE, H), the central critic reads the joint observation."""
+    obs, action, old_logp, old_value, adv, target, done, h0n, *bits = batch
+    obs_replay = jnp.transpose(obs, (0, 2, 3, 4, 1))  # (T, N, RB, LANE, L)
+    heads, _ = _gru_native_replay(actor, params["actor"], obs_replay, done, h0n)
+    value = _critic_native_forward(params["critic"], _joint_native(obs))
+    return clipped_ppo_terms(
+        cfg, heads, value, action, old_logp, old_value, adv, target,
+        bits[0] if bits else None,
+    )
+
+
+def ppo_update_epochs_native(cfg: IPPOConfig, tx, params, opt_state,
+                             dataset, key, loss_fn, axes):
+    """E epochs x M minibatches over a native-layout dataset tuple.
+
+    Entry i is sliced along ``axes[i]``: each minibatch is a contiguous
+    slice after a random per-epoch rotation — sequential reads, no index
+    gathers.  ``loss_fn(params, batch) -> (loss, metrics)``."""
+    extent = dataset[0].shape[axes[0]]
+    if extent % cfg.minibatches:
+        raise ValueError(
+            f"minibatches={cfg.minibatches} must divide the minibatch axis "
+            f"extent {extent}"
+        )
+    mb = extent // cfg.minibatches
+
+    def epoch(carry, k):
+        off = jax.random.randint(k, (), 0, extent)
+        rolled = tuple(jnp.roll(x, off, axis=ax) for x, ax in zip(dataset, axes))
+
+        def minibatch(carry, i):
+            params, opt_state = carry
+            batch = tuple(
+                jax.lax.dynamic_slice_in_dim(x, i * mb, mb, ax)
+                for x, ax in zip(rolled, axes)
+            )
+            (_, metrics), grads = jax.value_and_grad(loss_fn, has_aux=True)(
+                params, batch
+            )
+            updates, opt_state = tx.update(grads, opt_state, params)
+            return (optax.apply_updates(params, updates), opt_state), metrics
+
+        return jax.lax.scan(minibatch, carry, jnp.arange(cfg.minibatches))
+
+    return jax.lax.scan(
+        epoch, (params, opt_state), jax.random.split(key, cfg.epochs)
     )
 
 
@@ -121,9 +277,7 @@ def make_mappo_optimizer(cfg: IPPOConfig) -> optax.GradientTransformation:
     """Split per-part optimizer: the actor and the central critic each get
     their own clip_by_global_norm -> adam chain (the standard MAPPO recipe
     — Yu et al. 2022 run independent actor/critic optimizers), operating
-    on {"actor": ..., "critic": ...} grad/param pytrees.  Per-part clipping
-    is also what lets the actor ride the whole-phase fused update kernel
-    (its in-kernel global-norm clip sees exactly the actor gradient)."""
+    on {"actor": ..., "critic": ...} grad/param pytrees."""
     tx_a = make_optimizer(cfg)
     tx_c = make_optimizer(cfg)
 
@@ -148,6 +302,101 @@ def make_mappo_optimizer(cfg: IPPOConfig) -> optax.GradientTransformation:
         )
 
     return optax.GradientTransformation(init, update)
+
+
+def _build_native_collect(env: Warehouse, cfg: IPPOConfig, policy):
+    """XLA rollout that stores the native-layout trajectory.
+
+    ``policy(params, obs, h) -> (heads, new_h)``; ``h`` is the GRU carry
+    (B, N, H), reset to zeros at episode boundaries, or None for an MLP
+    actor.  Returns ``collect(params, env_states, obs, h, key) ->
+    (env_states, obs, h, traj)``."""
+    step_fn = jax.vmap(env._step_fn)
+    reset_fn = env._reset_fn
+    obs_fn = jax.vmap(policy_obs_fn(env))
+    msg = env.config.msg_bits
+    n_agents = env.n_agents
+    obs_dim = env.config.policy_obs_length
+    t_len = cfg.rollout_len
+    if cfg.n_envs % LANE:
+        raise ValueError(
+            f"n_envs={cfg.n_envs} must be a multiple of LANE={LANE} for "
+            "the native trajectory layout"
+        )
+    rb = cfg.n_envs // LANE
+
+    def native(x):  # (T, B, N, ...) -> (T, N, ..., RB, LANE)
+        x = jnp.moveaxis(x, 1, -1)
+        return x.reshape(x.shape[:-1] + (rb, LANE))
+
+    def collect(params, env_states, obs, h, key):
+        def one(carry, k):
+            states, obs, h = carry
+            heads, h = policy(params, obs, h)
+            if msg:
+                action, logp = sample_action_msg(k, *heads)
+                move = action[..., 0]
+            else:
+                action, logp = sample_action(k, heads)
+                move = action
+            res = step_fn(states, action)
+            nxt = jax.vmap(lambda s, d: autoreset_select(reset_fn, s, d))(
+                res.state, res.done
+            )
+            if h is not None:
+                h = jnp.where(res.done[:, None, None], jnp.zeros_like(h), h)
+            out = (obs, move, logp, res.rewards, res.done) + (
+                (action[..., 1:],) if msg else ()
+            )
+            return (nxt, obs_fn(nxt), h), out
+
+        (env_states, obs, h), t = jax.lax.scan(
+            one, (env_states, obs, h), jax.random.split(key, t_len)
+        )
+        obs_t, move_t, logp_t, rew_t, done_t = t[:5]
+        traj = {
+            # (T, B, N, L) -> (T, L, N, RB, LANE)
+            "obs": jnp.transpose(obs_t, (0, 3, 2, 1))
+            .reshape(t_len, obs_dim, n_agents, rb, LANE)
+            .astype(jnp.bfloat16),
+            "action": native(move_t).astype(jnp.int32),
+            "logp": native(logp_t),
+            "reward": native(rew_t),
+            "done": done_t.reshape(t_len, 1, rb, LANE).astype(jnp.int32),
+        }
+        if msg:
+            # (T, B, N, M) -> agent-major rows (T, N*M, RB, LANE)
+            traj["bits"] = (
+                jnp.transpose(t[5], (0, 2, 3, 1))
+                .reshape(t_len, -1, rb, LANE)
+                .astype(jnp.int32)
+            )
+        return env_states, obs, h, traj
+
+    return collect
+
+
+def _critic_targets(cfg, critic, critic_params, traj, obs):
+    """Old critic values over the stored trajectory, the bootstrap value
+    from the post-rollout joint observation, and native GAE."""
+    values = _critic_native_forward(
+        critic_params, _joint_native(traj["obs"])
+    )  # (T, N, RB, LANE)
+    b, n, l = obs.shape
+    last_value = critic.apply(critic_params, obs.reshape(b, n * l))  # (B, N)
+    last_value = jnp.swapaxes(last_value, 0, 1).reshape(n, b // LANE, LANE)
+    advantages, targets = compute_gae_native(
+        cfg, traj["reward"], values, traj["done"], last_value
+    )
+    return values, advantages, targets
+
+
+def _rollout_metrics(cfg, traj, metrics):
+    return {
+        "reward_per_env": traj["reward"].sum() / cfg.n_envs,
+        "episodes_done": traj["done"].sum(),
+        **jax.tree.map(lambda x: x.mean(), metrics),
+    }
 
 
 def init_mappo_runner(
@@ -195,480 +444,37 @@ def build_mappo_train_step(
     critic: CentralCritic,
     tx: optax.GradientTransformation,
     cfg: IPPOConfig,
-    interpret: bool = False,
-    deterministic_collect: bool = False,
-    collect_mode: str = "pallas",
-    fused_actor_update: Optional[bool] = None,
-    fused_actor_phase: Optional[bool] = None,
-    fused_critic_update: Optional[bool] = None,
-    fused_critic_phase: bool = False,
-    mesh=None,
-    mesh_axis: str = "env",
 ):
-    """One jitted MAPPO update: fused Pallas collect (actor in-kernel) ->
+    """One jitted MAPPO update: XLA collect into the native layout ->
     critic values over the stored trajectory -> native GAE -> E x M
-    clipped updates of {actor, critic}.
+    clipped updates of {actor, critic} on time-window minibatches."""
 
-    ``fused_critic_phase=True`` (combined path only, no mesh/msg) runs
-    the WHOLE update phase — every pass for both parts plus both
-    clip->Adam chains — as one Pallas program
-    (ops/pallas_update.build_fused_mappo_update_phase).
+    def policy(params, obs, h):
+        heads, _ = actor.apply(params, obs)
+        return heads, h
 
-    The DEFAULT update path (``fused_critic_update``, on for pallas
-    collect without message bits) runs the combined actor+critic Pallas
-    gradient kernel (ops/pallas_update.build_fused_mappo_grads): both
-    networks' forward+backward from ONE read of the native obs block per
-    pass, trajectory values from the native-layout critic forward kernel
-    (build_fused_critic_values) — no `_joint_rowmajor` relayout, no XLA
-    critic autodiff (the round-3 3x-under-IPPO straggler;
-    tools/mappo_bisect.py stage D).  ``fused_critic_update=False`` keeps
-    the split path: actor through the vf_coef=0 PPO kernel, critic via
-    XLA autodiff on row-major joint windows (required for msg configs).
+    collect = _build_native_collect(env, cfg, policy)
 
-    ``collect_mode="xla"`` swaps the Pallas collector for a vmap+scan XLA
-    collect that emits the SAME native-layout trajectory (CPU-runnable —
-    the stochastic kernel needs the TPU PRNG), so the update path is
-    byte-identical across backends.
-
-    ``mesh``: shard_map the whole step over ``mesh_axis`` (env-batch data
-    parallel; params/opt state replicated, per-minibatch gradient pmean
-    inside ppo_update_epochs_native)."""
-    from rware_tpu.ops.pallas_rollout import (
-        ENV_BLOCK,
-        LANE,
-        build_pallas_collect,
-    )
-
-    obs_fn = jax.vmap(policy_obs_fn(env))
-    n_agents = env.n_agents
-    obs_dim = env.config.policy_obs_length
-    msg = env.config.msg_bits
-    n_shards = int(mesh.shape[mesh_axis]) if mesh is not None else 1
-    n_local = cfg.n_envs // n_shards
-    axis_name = mesh_axis if mesh is not None else None
-
-    if collect_mode == "pallas":
-        _collect = build_pallas_collect(
-            env.config,
-            cfg.rollout_len,
-            hidden=tuple(actor.hidden),
-            tc_len=_pick_tc_len(cfg.rollout_len),
-            interpret=interpret,
-            deterministic=deterministic_collect,
-            native_traj=True,
-        )
-        n_tc = max(1, cfg.rollout_len // _pick_tc_len(cfg.rollout_len))
-        streams_per_update = (cfg.n_envs // ENV_BLOCK) * n_tc
-        streams_per_shard = (n_local // ENV_BLOCK) * n_tc
-
-        def collect(runner, k_roll):
-            seed = runner.update_idx * jnp.int32(streams_per_update)
-            if axis_name is not None:
-                seed = seed + jax.lax.axis_index(axis_name) * jnp.int32(
-                    streams_per_shard
-                )
-            return _collect(runner.env_states, runner.params["actor"], seed)
-    else:
-        from rware_tpu.models.networks import sample_action
-        from rware_tpu.parallel.rollout import autoreset_select
-
-        step_fn = jax.vmap(env._step_fn)
-        reset_fn = env._reset_fn
-        if n_local % LANE:
-            raise ValueError(
-                f"n_envs={cfg.n_envs} over {n_shards} shard(s) gives "
-                f"{n_local} local envs; must be a multiple of LANE={LANE} "
-                f"for the native trajectory layout"
-            )
-        rb_c = n_local // LANE
-
-        def native(x):  # (T, B, N, ...) -> (T, N, ..., RB, LANE)
-            x = jnp.moveaxis(x, 1, -1)  # (T, N, ..., B)
-            return x.reshape(x.shape[:-1] + (rb_c, LANE))
-
-        def collect(runner, k_roll):
-            def one(carry, key):
-                params, states, obs = carry
-                heads, _ = actor.apply(params, obs)
-                if msg:
-                    from rware_tpu.models.networks import sample_action_msg
-
-                    action, logp = sample_action_msg(key, *heads)
-                    move = action[..., 0]
-                else:
-                    action, logp = sample_action(key, heads)
-                    move = action
-                res = step_fn(states, action)
-                nxt = jax.vmap(
-                    lambda s, d: autoreset_select(reset_fn, s, d)
-                )(res.state, res.done)
-                t = (obs, move, logp, res.rewards, res.done) + (
-                    (action[..., 1:],) if msg else ()
-                )
-                return (params, nxt, obs_fn(nxt)), t
-
-            if axis_name is not None:
-                k_roll = jax.random.fold_in(
-                    k_roll, jax.lax.axis_index(axis_name)
-                )
-            keys = jax.random.split(k_roll, cfg.rollout_len)
-            (_, env_states, _), t = jax.lax.scan(
-                one,
-                (runner.params["actor"], runner.env_states, runner.obs),
-                keys,
-            )
-            if msg:
-                obs_t, move_t, logp_t, rew_t, done_t, bits_t = t
-            else:
-                obs_t, move_t, logp_t, rew_t, done_t = t
-            traj = {
-                # (T, B, N, L) -> (T, L, N, RB, LANE): feature axis to
-                # kernel-native position
-                "obs": jnp.transpose(
-                    obs_t, (0, 3, 2, 1)
-                ).reshape(
-                    cfg.rollout_len, obs_dim, n_agents, rb_c, LANE
-                ).astype(jnp.bfloat16),
-                "action": native(move_t).astype(jnp.int32),
-                "logp": native(logp_t),
-                "reward": native(rew_t),
-                "done": done_t.reshape(
-                    cfg.rollout_len, 1, rb_c, LANE
-                ).astype(jnp.int32),
-            }
-            if msg:
-                # (T, B, N, M) -> agent-major rows (T, N*M, RB, LANE)
-                traj["bits"] = jnp.transpose(
-                    bits_t, (0, 2, 3, 1)
-                ).reshape(cfg.rollout_len, -1, rb_c, LANE).astype(
-                    jnp.int32
-                )
-            return env_states, traj
-
-    # Combined actor+critic kernel: the default for kernel-capable
-    # backends without message bits (the msg head stays on the split
-    # path).  Resolved per collect mode: the kernels need TPU/interpret.
-    if fused_critic_update is None:
-        # explicit split-path knobs (fused_actor_update/_phase) opt out of
-        # the combined default
-        fused_critic_update = (
-            collect_mode == "pallas" and msg == 0
-            and fused_actor_update is None and not fused_actor_phase
-        )
-        if fused_critic_update:
-            # the combined kernel folds the agent axis; configs with no
-            # Mosaic-legal fold (e.g. 19 agents at small batches) default
-            # back to the split path, whose per-pass actor kernel never
-            # folds
-            from rware_tpu.ops.pallas_update import _pick_fold_rb_chunk
-
-            try:
-                _pick_fold_rb_chunk(n_local // LANE, n_agents)
-            except ValueError:
-                fused_critic_update = False
-    if fused_critic_update and msg != 0:
-        raise ValueError("fused_critic_update requires msg_bits=0")
-    if fused_critic_update and fused_actor_phase:
-        raise ValueError(
-            "fused_actor_phase applies to the split path only "
-            "(fused_critic_update=False)"
-        )
-
-    # Actor gradients through the fused PPO kernel (ops/pallas_update)
-    # with vf_coef=0 — the actor's unused local value head gets exactly
-    # zero gradient, and the policy/entropy terms are the same clipped
-    # objective MAPPO's loss takes.  Only the central critic's value
-    # gradients (a short dense stack over the joint obs) stay in XLA.
-    # Resolved per collect mode: the kernel needs TPU (or interpret).
-    if fused_actor_update is None:
-        fused_actor_update = collect_mode == "pallas"
-
-    if fused_critic_phase and not fused_critic_update:
-        raise ValueError("fused_critic_phase requires the combined path")
-    if fused_critic_phase and (mesh is not None or msg != 0):
-        raise ValueError(
-            "fused_critic_phase requires mesh=None and msg_bits=0 (the "
-            "optimizer runs in-kernel, so there is no per-minibatch "
-            "gradient to pmean)"
-        )
-
-    if fused_critic_update:
-        from rware_tpu.ops.pallas_update import (
-            _critic_perm,
-            build_fused_critic_values,
-            build_fused_mappo_grads,
-        )
-
-        phase_fn = None
-        traj_values_fn = build_fused_critic_values(
-            obs_len=obs_dim, n_agents=n_agents,
-            rollout_len=cfg.rollout_len, mb_rows=n_local // LANE,
-            hidden=tuple(critic.hidden), interpret=interpret,
-        )
-        mappo_phase_fn = None
-        perm = inv_perm = None
-        if fused_critic_phase:
-            from rware_tpu.ops.pallas_update import (
-                build_fused_mappo_update_phase,
-            )
-
-            perm, inv_perm = _critic_perm(obs_dim, n_agents)
-            mappo_phase_fn = build_fused_mappo_update_phase(
-                obs_len=obs_dim,
-                hidden=tuple(actor.hidden),
-                n_actions=env.n_actions,
-                dataset_len=cfg.rollout_len,
-                n_agents=n_agents,
-                mb_rows=n_local // LANE,
-                epochs=cfg.epochs,
-                minibatches=cfg.minibatches,
-                clip_eps=cfg.clip_eps,
-                vf_coef=cfg.vf_coef,
-                ent_coef=cfg.ent_coef,
-                max_grad_norm=cfg.max_grad_norm,
-                critic_hidden=tuple(critic.hidden),
-                interpret=interpret,
-            )
-        grads_fn = build_fused_mappo_grads(
-            obs_len=obs_dim,
-            hidden=tuple(actor.hidden),
-            n_actions=env.n_actions,
-            rollout_len=cfg.rollout_len // cfg.minibatches,
-            n_agents=n_agents,
-            mb_rows=n_local // LANE,
-            clip_eps=cfg.clip_eps,
-            vf_coef=cfg.vf_coef,
-            ent_coef=cfg.ent_coef,
-            critic_hidden=tuple(critic.hidden),
-            interpret=interpret,
-            dataset_len=cfg.rollout_len,
-        )
-    elif fused_actor_update:
-        from rware_tpu.ops.pallas_update import build_fused_ppo_grads
-
-        akernel = build_fused_ppo_grads(
-            obs_len=obs_dim,
-            hidden=tuple(actor.hidden),
-            n_actions=env.n_actions,
-            rollout_len=cfg.rollout_len // cfg.minibatches,
-            n_agents=n_agents,
-            mb_rows=n_local // LANE,
-            clip_eps=cfg.clip_eps,
-            vf_coef=0.0,
-            ent_coef=cfg.ent_coef,
-            interpret=interpret,
-            msg_bits=msg,
-            dataset_len=cfg.rollout_len,
-        )
-        tmb = cfg.rollout_len // cfg.minibatches
-
-        def critic_loss(cp, joint_mb, old_value, target):
-            # joint_mb is row-major (T_mb, RB, LANE, N*L): the trunk dots
-            # contract the minor axis straight off HBM (_joint_rowmajor)
-            value = _critic_rowmajor_forward(cp, joint_mb)
-            v_clipped = old_value + jnp.clip(
-                value - old_value, -cfg.clip_eps, cfg.clip_eps
-            )
-            v_loss = 0.5 * jnp.maximum(
-                (value - target) ** 2, (v_clipped - target) ** 2
-            ).mean()
-            return cfg.vf_coef * v_loss, v_loss
-
-        def make_grads_fn(joint_ext, values_ext, targets_ext):
-            """Per-update grads_fn closing over the critic's self-concat
-            minibatch sources.  The actor kernel reads rows (start+t) % T
-            straight from the full trajectory; the critic's window is a
-            CONTIGUOUS dynamic_slice of the (T+T/M)-row self-concat of
-            the once-per-update joint-obs transpose — the bisected
-            per-pass jnp.take gather + _joint_native transpose
-            (~2/3 of the measured 8.5 ms critic phase at B=4096,
-            tools/mappo_bisect.py) are gone from the E x M loop."""
-
-            def grads_fn(params, batch, start):
-                ag, mets = akernel(params["actor"], batch, start)
-                joint_mb = jax.lax.dynamic_slice_in_dim(
-                    joint_ext, start, tmb, 0
-                )
-                old_value = jax.lax.dynamic_slice_in_dim(
-                    values_ext, start, tmb, 0
-                )
-                target = jax.lax.dynamic_slice_in_dim(
-                    targets_ext, start, tmb, 0
-                )
-                (_closs, v_loss), cg = jax.value_and_grad(
-                    critic_loss, has_aux=True
-                )(params["critic"], joint_mb, old_value, target)
-                mets = {**mets, "v_loss": v_loss}
-                return {"actor": ag, "critic": cg}, mets
-
-            grads_fn.dataset_len = cfg.rollout_len
-            return grads_fn
-
-        # Whole-phase actor update (OPT-IN): every E x M actor pass plus
-        # its Adam chain as ONE Pallas program (the IPPO update-phase
-        # kernel with vf_coef=0), the critic's E x M passes as an XLA
-        # scan over the SAME window starts
-        # (ippo_pallas.phase_window_starts — both sides see identical
-        # minibatches).  Measured slightly SLOWER than the per-pass
-        # default (20.2 vs 19.1 ms/update at B=4096, 114.7 vs 110.1 ms
-        # at B=16384, tools/mappo_bisect.py E vs F): unlike IPPO, the
-        # launch/glue the phase kernel removes is already hidden behind
-        # the critic's XLA work here, and the serial phase program
-        # cannot overlap the critic scan.  Kept selectable for configs
-        # where the tradeoff flips (more epochs, deeper actors).  Same
-        # exclusions as IPPO's phase kernel: no message head, no mesh
-        # (the optimizer is in-kernel, so there is no per-minibatch
-        # gradient to pmean).
-        mappo_phase_fn = None
-        if fused_actor_phase is None:
-            fused_actor_phase = False
-        if fused_actor_phase and (mesh is not None or msg != 0):
-            raise ValueError(
-                "fused_actor_phase requires mesh=None and msg_bits=0"
-            )
-        phase_fn = None
-        if fused_actor_phase:
-            from rware_tpu.ops.pallas_update import (
-                build_fused_ppo_update_phase,
-            )
-
-            phase_fn = build_fused_ppo_update_phase(
-                obs_len=obs_dim,
-                hidden=tuple(actor.hidden),
-                n_actions=env.n_actions,
-                dataset_len=cfg.rollout_len,
-                n_agents=n_agents,
-                mb_rows=n_local // LANE,
-                epochs=cfg.epochs,
-                minibatches=cfg.minibatches,
-                clip_eps=cfg.clip_eps,
-                vf_coef=0.0,
-                ent_coef=cfg.ent_coef,
-                max_grad_norm=cfg.max_grad_norm,
-                interpret=interpret,
-            )
-            tx_c = make_optimizer(cfg)
-
-        def critic_phase(cp, copt, exts, starts):
-            """E x M critic passes (clip -> Adam) over the shared window
-            starts, scanned in XLA while the actor phase runs in-kernel."""
-            joint_ext, values_ext, targets_ext = exts
-
-            def cpass(carry, start):
-                cp, copt = carry
-                sl = lambda x: jax.lax.dynamic_slice_in_dim(
-                    x, start, tmb, 0
-                )
-                (_cl, v_loss), cg = jax.value_and_grad(
-                    critic_loss, has_aux=True
-                )(cp, sl(joint_ext), sl(values_ext), sl(targets_ext))
-                u, copt = tx_c.update(cg, copt, cp)
-                return (optax.apply_updates(cp, u), copt), v_loss
-
-            (cp, copt), v_losses = jax.lax.scan(cpass, (cp, copt), starts)
-            return cp, copt, v_losses
-    else:
-        phase_fn = None
-        mappo_phase_fn = None
-
-        def grads_fn(params, batch):
-            (loss, metrics), grads = jax.value_and_grad(
-                mappo_loss_native, argnums=1, has_aux=True
-            )(cfg, params, batch)
-            return grads, metrics
+    def loss_fn(params, batch):
+        return mappo_loss_native(cfg, params, batch)
 
     def train_step(runner: RunnerState) -> Tuple[RunnerState, dict]:
         key, k_perm, k_roll = jax.random.split(runner.key, 3)
-        env_states, traj = collect(runner, k_roll)
-        obs = obs_fn(env_states)  # (B, N, L)
-
-        # critic values over the stored trajectory and the bootstrap value
-        # from the post-rollout joint observation.  Default: the native-
-        # layout critic forward kernel — no joint-obs relayout at all.
-        # Split paths relayout ONCE here and reuse it per minibatch window
-        # (make_grads_fn / critic_phase), contracting the minor axis.
-        if fused_critic_update:
-            values = traj_values_fn(
-                runner.params["critic"], traj["obs"]
-            )  # (T, N, RB, LANE)
-        elif fused_actor_update:
-            joint = _joint_rowmajor(traj["obs"])  # (T, RB, LANE, N*L)
-            values = _critic_rowmajor_forward(
-                runner.params["critic"], joint
-            )  # (T, N, RB, LANE)
-        else:
-            joint = _joint_native(traj["obs"])  # (T, N*L, RB, LANE)
-            values = _critic_native_forward(
-                runner.params["critic"], joint
-            )
-        last_joint = obs.reshape(n_local, n_agents * obs_dim)
-        last_value = critic.apply(
-            runner.params["critic"], last_joint
-        )  # (B, N)
-        rb = n_local // LANE
-        last_value_native = jnp.swapaxes(last_value, 0, 1).reshape(
-            n_agents, rb, LANE
+        env_states, obs, _, traj = collect(
+            runner.params["actor"], runner.env_states, runner.obs, None,
+            k_roll,
         )
-        advantages, targets = compute_gae_native(
-            cfg, traj["reward"], values, traj["done"], last_value_native
+        values, advantages, targets = _critic_targets(
+            cfg, critic, runner.params["critic"], traj, obs
         )
         dataset = (
             traj["obs"], traj["action"], traj["logp"],
             values, advantages, targets,
+        ) + ((traj["bits"],) if "bits" in traj else ())
+        (params, opt_state), metrics = ppo_update_epochs_native(
+            cfg, tx, runner.params, runner.opt_state, dataset, k_perm,
+            loss_fn, axes=(0,) * len(dataset),
         )
-        if "bits" in traj:
-            dataset = dataset + (traj["bits"],)
-        if fused_actor_update and not fused_critic_update:
-            def ext(x):  # wrap rows so start in [0, T) slices contiguously
-                return jnp.concatenate([x, x[: tmb]], axis=0)
-
-            exts = (ext(joint), ext(values), ext(targets))
-        if fused_critic_update and mappo_phase_fn is not None:
-            (params, opt_state), metrics = mappo_update_phase_fused(
-                cfg, runner.params, runner.opt_state, dataset, k_perm,
-                mappo_phase_fn, perm, inv_perm,
-            )
-        elif fused_actor_update and phase_fn is not None:
-            from rware_tpu.models.ippo_pallas import (
-                phase_window_starts,
-                ppo_update_phase_fused,
-            )
-
-            (aparams, aopt), ametrics = ppo_update_phase_fused(
-                cfg, runner.params["actor"], runner.opt_state["actor"],
-                dataset, k_perm, phase_fn,
-            )
-            # the SAME starts ppo_update_phase_fused derived from k_perm
-            starts = phase_window_starts(
-                cfg, cfg.rollout_len, phase_fn.time_block, k_perm
-            )
-            cparams, copt, v_losses = critic_phase(
-                runner.params["critic"], runner.opt_state["critic"],
-                exts, starts,
-            )
-            params = {"actor": aparams, "critic": cparams}
-            opt_state = {"actor": aopt, "critic": copt}
-            metrics = {**ametrics, "v_loss": v_losses}
-        else:
-            upd_grads_fn = (
-                make_grads_fn(*exts)
-                if fused_actor_update and not fused_critic_update
-                else grads_fn
-            )
-            (params, opt_state), metrics = ppo_update_epochs_native(
-                cfg, tx, runner.params, runner.opt_state, dataset, k_perm,
-                axis_name=axis_name, grads_fn=upd_grads_fn,
-            )
-        reward_sum = traj["reward"].sum()
-        episodes = traj["done"].sum()
-        if axis_name is not None:
-            reward_sum = jax.lax.psum(reward_sum, axis_name)
-            episodes = jax.lax.psum(episodes, axis_name)
-        out_metrics = {
-            "reward_per_env": reward_sum / cfg.n_envs,
-            "episodes_done": episodes,
-            **jax.tree.map(lambda x: x.mean(), metrics),
-        }
         return (
             RunnerState(
                 params=params,
@@ -678,28 +484,14 @@ def build_mappo_train_step(
                 key=key,
                 update_idx=runner.update_idx + 1,
             ),
-            out_metrics,
+            _rollout_metrics(cfg, traj, metrics),
         )
 
-    if mesh is None:
-        return train_step
-    if collect_mode == "pallas" and n_local % ENV_BLOCK:
-        raise ValueError(
-            f"n_envs={cfg.n_envs} over {n_shards} shards gives {n_local} "
-            f"local envs; must be a multiple of ENV_BLOCK={ENV_BLOCK}"
-        )
-    from rware_tpu.parallel import shard_map_train_step
-
-    return shard_map_train_step(
-        train_step, mesh,
-        RunnerState(params=None, opt_state=None, env_states=None,
-                    obs=None, key=None, update_idx=None),
-        env_fields=("env_states", "obs"), axis=mesh_axis,
-    )
+    return train_step
 
 
 # ---------------------------------------------------------------------------
-# Recurrent MAPPO: GRU actor (fused collect kernel) + central critic.
+# Recurrent MAPPO: GRU actor + central critic.
 # ---------------------------------------------------------------------------
 
 
@@ -707,7 +499,7 @@ def init_rnn_mappo_runner(
     env: Warehouse,
     cfg: IPPOConfig,
     key: jax.Array,
-    actor=None,
+    actor: Optional[RecurrentActorCritic] = None,
     critic: Optional[CentralCritic] = None,
 ):
     """Recurrent MAPPO runner: ``params = {"actor": RecurrentActorCritic
@@ -716,20 +508,13 @@ def init_rnn_mappo_runner(
     split per-part optimizer.
 
     This is the literature's strongest RWARE config (MAPPO as in Yu et
-    al. 2022 is recurrent); both halves existed separately since round 3
-    — the GRU collect kernel and the central-critic machinery — and this
-    composes them."""
-    from rware_tpu.models.ippo import policy_obs_fn
-    from rware_tpu.models.networks import RecurrentActorCritic
-
+    al. 2022 is recurrent)."""
     if actor is None:
         actor = RecurrentActorCritic(
             n_actions=env.n_actions, msg_bits=env.config.msg_bits
         )
     if critic is None:
         critic = CentralCritic(n_agents=env.n_agents)
-    from rware_tpu.models.ippo_rnn import RNNRunnerState
-
     k_actor, k_critic, k_env, k_run = jax.random.split(key, 4)
     obs_dim = env.config.policy_obs_length
     n = env.n_agents
@@ -757,397 +542,67 @@ def init_rnn_mappo_runner(
 
 def build_rnn_mappo_train_step(
     env: Warehouse,
-    actor,
+    actor: RecurrentActorCritic,
     critic: CentralCritic,
     tx: optax.GradientTransformation,
     cfg: IPPOConfig,
-    interpret: bool = False,
-    deterministic_collect: bool = False,
-    fused_critic_update: Optional[bool] = None,
-    mesh=None,
-    mesh_axis: str = "env",
 ):
-    """One jitted recurrent-MAPPO update: GRU-fused Pallas collect (actor
-    recurrence in-kernel, episode-boundary carry resets) -> central-critic
-    trajectory values via the native-layout forward kernel -> native GAE
-    -> E x M env-band minibatch updates: the GRU actor through XLA
-    autodiff of the replay loss with vf_coef=0 (its local value head
-    takes exactly zero gradient — MAPPO's value term is the critic's),
-    the critic through the critic-only fused kernel
-    (ops/pallas_update.build_fused_mappo_grads(with_actor=False)).
+    """One jitted recurrent-MAPPO update: XLA collect with the GRU actor
+    (episode-boundary carry resets) -> central-critic values over the
+    stored trajectory -> native GAE -> E x M env-band minibatch updates,
+    each replaying the GRU over its band from the carry at rollout start
+    (_gru_native_replay).
 
-    Minibatches are env bands (recurrent replay cannot slice time), so
-    the critic kernel is built per-band (mb_rows = RB/M) rather than in
-    the zero-copy time-window mode the MLP path uses.
-
-    Message bits (reference env feature, rware/warehouse.py:150-152,
-    809-814) are fully supported: the GRU collect kernel samples the
-    Bernoulli message head in-kernel and stores agent-major bit rows,
-    the actor replays the joint move+message loss
-    (rnn_ppo_loss_native's 9-entry batch), and the central critic is
-    msg-agnostic — the joint obs already carries neighbours' message
-    features through policy_obs_length."""
-    import dataclasses as _dc
-
-    from rware_tpu.models.ippo_pallas import compute_gae_native
-    from rware_tpu.models.ippo import policy_obs_fn
-    from rware_tpu.models.ippo_rnn import (
-        RNNRunnerState,
-        _pick_tc_len_gru_default,
-        rnn_ppo_loss_native,
-    )
-    from rware_tpu.ops.pallas_rollout import (
-        ENV_BLOCK,
-        LANE,
-        build_pallas_collect,
-    )
-    from rware_tpu.ops.pallas_update import (
-        build_fused_critic_values,
-        build_fused_mappo_grads,
-    )
-
-    msg = env.config.msg_bits
-    hidden = (int(actor.embed), int(actor.hidden))
-    hg = int(actor.hidden)
-    collect = build_pallas_collect(
-        env.config,
-        cfg.rollout_len,
-        hidden=hidden,
-        tc_len=_pick_tc_len_gru_default(cfg.rollout_len),
-        interpret=interpret,
-        deterministic=deterministic_collect,
-        policy="gru",
-        native_traj=True,
-    )
-    obs_fn = jax.vmap(policy_obs_fn(env))
+    Message bits are supported: the actor samples the Bernoulli message
+    head, the loss takes the joint move+message log-prob, and the central
+    critic is msg-agnostic — the joint obs already carries neighbours'
+    message features through policy_obs_length."""
     n_agents = env.n_agents
-    obs_dim = env.config.policy_obs_length
-    n_tc = max(
-        1, cfg.rollout_len // _pick_tc_len_gru_default(cfg.rollout_len)
-    )
-    streams_per_update = (cfg.n_envs // ENV_BLOCK) * n_tc
-    n_shards = int(mesh.shape[mesh_axis]) if mesh is not None else 1
-    n_local = cfg.n_envs // n_shards
-    streams_per_shard = (n_local // ENV_BLOCK) * n_tc
-    axis_name = mesh_axis if mesh is not None else None
-    rb = n_local // LANE
-    if rb % cfg.minibatches:
-        raise ValueError(
-            f"minibatches={cfg.minibatches} must divide the {rb} env rows"
-        )
-    mb = rb // cfg.minibatches
+    hg = int(actor.hidden)
 
-    if fused_critic_update is None:
-        fused_critic_update = True
+    def policy(params, obs, h):
+        h, (heads, _) = actor.apply(params, h, obs)
+        return heads, h
 
-    traj_values_fn = build_fused_critic_values(
-        obs_len=obs_dim, n_agents=n_agents, rollout_len=cfg.rollout_len,
-        mb_rows=rb, hidden=tuple(critic.hidden), interpret=interpret,
-    )
-    critic_grads_fn = None
-    if fused_critic_update:
-        critic_grads_fn = build_fused_mappo_grads(
-            obs_len=obs_dim,
-            hidden=(128, 128),  # unused (with_actor=False)
-            n_actions=env.n_actions,
-            rollout_len=cfg.rollout_len,
-            n_agents=n_agents,
-            mb_rows=mb,
-            clip_eps=cfg.clip_eps,
-            vf_coef=cfg.vf_coef,
-            ent_coef=cfg.ent_coef,
-            critic_hidden=tuple(critic.hidden),
-            interpret=interpret,
-            with_actor=False,
-        )
+    collect = _build_native_collect(env, cfg, policy)
 
-    # the actor trains on the clipped surrogate + entropy only
-    actor_cfg = _dc.replace(cfg, vf_coef=0.0)
-
-    def actor_loss(aparams, batch):
-        return rnn_ppo_loss_native(actor_cfg, actor, aparams, batch)
-
-    def critic_loss_xla(cparams, obs_band, old_value, target):
-        # CPU-testable fallback: same clipped value loss via XLA autodiff
-        value = _critic_native_forward(cparams, _joint_native(obs_band))
-        v_clipped = old_value + jnp.clip(
-            value - old_value, -cfg.clip_eps, cfg.clip_eps
-        )
-        v_loss = 0.5 * jnp.maximum(
-            (value - target) ** 2, (v_clipped - target) ** 2
-        ).mean()
-        return cfg.vf_coef * v_loss, v_loss
-
-    # env-row axis per dataset entry: (obs_native, obs_replay, done,
-    # action, logp, value, adv, target, h0n[, bits]) — message bits
-    # (T, N*M, RB, LANE) agent-major rows switch the actor replay to the
-    # joint move+Bernoulli loss (rnn_ppo_loss_native's 9-entry batch);
-    # the central critic is msg-agnostic (the joint obs already carries
-    # the neighbours' message features via policy_obs_length).
-    _RB_AXES = (3, 2, 2, 2, 2, 2, 2, 2, 1) + ((2,) if msg else ())
+    def loss_fn(params, batch):
+        return rnn_mappo_loss_native(cfg, actor, params, batch)
 
     def train_step(runner: RNNRunnerState):
-        key, k_perm = jax.random.split(runner.key, 2)
-        seed = runner.update_idx * jnp.int32(streams_per_update)
-        if axis_name is not None:
-            seed = seed + jax.lax.axis_index(axis_name) * jnp.int32(
-                streams_per_shard
-            )
-        h0 = runner.carry  # (B_local, N, Hg)
-        env_states, new_carry, traj = collect(
-            runner.env_states, runner.params["actor"], seed, h0=h0
+        key, k_perm, k_roll = jax.random.split(runner.key, 3)
+        h0 = runner.carry  # (B, N, H) at rollout start
+        env_states, obs, carry, traj = collect(
+            runner.params["actor"], runner.env_states, runner.obs, h0, k_roll
         )
-        values = traj_values_fn(
-            runner.params["critic"], traj["obs"]
-        )  # (T, N, RB, LANE)
-        obs = obs_fn(env_states)
-        last_joint = obs.reshape(n_local, n_agents * obs_dim)
-        last_value = critic.apply(runner.params["critic"], last_joint)
-        last_value_native = jnp.swapaxes(last_value, 0, 1).reshape(
-            n_agents, rb, LANE
-        )
-        advantages, targets = compute_gae_native(
-            cfg, traj["reward"], values, traj["done"], last_value_native
+        values, advantages, targets = _critic_targets(
+            cfg, critic, runner.params["critic"], traj, obs
         )
         h0n = jnp.transpose(h0, (1, 0, 2)).reshape(
-            n_agents, rb, LANE, hg
+            n_agents, cfg.n_envs // LANE, LANE, hg
         )
-        obs_replay = jnp.transpose(traj["obs"], (0, 2, 3, 4, 1))
         dataset = (
-            traj["obs"], obs_replay, traj["done"], traj["action"],
-            traj["logp"], values, advantages, targets, h0n,
-        ) + ((traj["bits"],) if msg else ())
-        # wrapped env-band minibatches without per-epoch rolls (the
-        # recurrent-IPPO self-concat trick)
-        doubled = tuple(
-            jnp.concatenate([x, x], axis=ax)
-            for x, ax in zip(dataset, _RB_AXES)
+            traj["obs"], traj["action"], traj["logp"], values, advantages,
+            targets, traj["done"], h0n,
+        ) + ((traj["bits"],) if "bits" in traj else ())
+        # env-row axis of each entry (obs rows sit one axis further in,
+        # the carry has no time axis)
+        axes = (3, 2, 2, 2, 2, 2, 2, 1, 2)[: len(dataset)]
+        (params, opt_state), metrics = ppo_update_epochs_native(
+            cfg, tx, runner.params, runner.opt_state, dataset, k_perm,
+            loss_fn, axes=axes,
         )
-
-        def epoch(carry_es, k):
-            params, opt_state = carry_es
-            off = jax.random.randint(k, (), 0, rb)
-
-            def minibatch(carry_es, i):
-                params, opt_state = carry_es
-                start = (i * mb - off) % rb
-                band = tuple(
-                    jax.lax.dynamic_slice_in_dim(x, start, mb, ax)
-                    for x, ax in zip(doubled, _RB_AXES)
-                )
-                (obs_nat, obs_rep, done_b, act_b, logp_b, val_b, adv_b,
-                 tgt_b, h0_b) = band[:9]
-                abatch = (
-                    obs_rep, done_b, act_b, logp_b, val_b, adv_b, tgt_b,
-                    h0_b,
-                ) + band[9:]
-                (_l, ametrics), ag = jax.value_and_grad(
-                    actor_loss, has_aux=True
-                )(params["actor"], abatch)
-                if critic_grads_fn is not None:
-                    cg, cmets = critic_grads_fn(
-                        params["critic"], (obs_nat, val_b, tgt_b)
-                    )
-                else:
-                    (_cl, v_loss), cg = jax.value_and_grad(
-                        critic_loss_xla, has_aux=True
-                    )(params["critic"], obs_nat, val_b, tgt_b)
-                    cmets = {"v_loss": v_loss}
-                grads = {"actor": ag, "critic": cg}
-                metrics = {**ametrics, "v_loss": cmets["v_loss"]}
-                if axis_name is not None:
-                    grads = jax.lax.pmean(grads, axis_name)
-                    metrics = jax.lax.pmean(metrics, axis_name)
-                updates, opt_state = tx.update(grads, opt_state, params)
-                params = optax.apply_updates(params, updates)
-                return (params, opt_state), metrics
-
-            return jax.lax.scan(
-                minibatch, (params, opt_state), jnp.arange(cfg.minibatches)
-            )
-
-        (params, opt_state), metrics = jax.lax.scan(
-            epoch,
-            (runner.params, runner.opt_state),
-            jax.random.split(k_perm, cfg.epochs),
-        )
-        reward_sum = traj["reward"].sum()
-        episodes = traj["done"].sum()
-        if axis_name is not None:
-            reward_sum = jax.lax.psum(reward_sum, axis_name)
-            episodes = jax.lax.psum(episodes, axis_name)
-        out_metrics = {
-            "reward_per_env": reward_sum / cfg.n_envs,
-            "episodes_done": episodes,
-            **jax.tree.map(lambda x: x.mean(), metrics),
-        }
         return (
             RNNRunnerState(
                 params=params,
                 opt_state=opt_state,
                 env_states=env_states,
                 obs=obs,
-                carry=new_carry.astype(runner.carry.dtype),
+                carry=carry,
                 key=key,
                 update_idx=runner.update_idx + 1,
             ),
-            out_metrics,
+            _rollout_metrics(cfg, traj, metrics),
         )
 
-    if mesh is None:
-        return train_step
-    if n_local % ENV_BLOCK:
-        raise ValueError(
-            f"n_envs={cfg.n_envs} over {n_shards} shards gives {n_local} "
-            f"local envs; must be a multiple of ENV_BLOCK={ENV_BLOCK}"
-        )
-    from rware_tpu.parallel import shard_map_train_step
-    from rware_tpu.models.ippo_rnn import RNNRunnerState as _RS
-
-    return shard_map_train_step(
-        train_step, mesh,
-        _RS(params=None, opt_state=None, env_states=None, obs=None,
-            carry=None, key=None, update_idx=None),
-        env_fields=("env_states", "obs", "carry"), axis=mesh_axis,
-    )
-
-
-def _critic_params_to_arrays(cparams, perm):
-    """CentralCritic params -> the kernel-layout blocks of
-    build_fused_mappo_grads / build_fused_mappo_update_phase (dense_0
-    rows permuted to the joint-feature order l*N + n)."""
-    p = cparams["params"]
-    return [
-        p["dense_0"]["kernel"][perm], p["dense_0"]["bias"][None, :],
-        p["dense_1"]["kernel"], p["dense_1"]["bias"][None, :],
-        p["value"]["kernel"], p["value"]["bias"][None, :],
-    ]
-
-
-def _arrays_to_critic_params(arrays, like, inv_perm):
-    c0, cb0, c1, cb1, cv, cbv = arrays
-    tpl = like["params"]
-
-    def leaf(new, old):
-        return new.astype(old.dtype)
-
-    return {
-        "params": {
-            "dense_0": {
-                "kernel": leaf(c0[inv_perm], tpl["dense_0"]["kernel"]),
-                "bias": leaf(cb0[0], tpl["dense_0"]["bias"]),
-            },
-            "dense_1": {
-                "kernel": leaf(c1, tpl["dense_1"]["kernel"]),
-                "bias": leaf(cb1[0], tpl["dense_1"]["bias"]),
-            },
-            "value": {
-                "kernel": leaf(cv, tpl["value"]["kernel"]),
-                "bias": leaf(cbv[0], tpl["value"]["bias"]),
-            },
-        }
-    }
-
-
-def mappo_update_phase_fused(cfg, params, opt_state, dataset, key,
-                             update_fn, perm, inv_perm):
-    """Run the whole-phase MAPPO kernel
-    (ops/pallas_update.build_fused_mappo_update_phase) and rebuild the
-    split optax state around it — the MAPPO analogue of
-    ippo_pallas.ppo_update_phase_fused (same window starts / advantage
-    stats / Adam hyper rows; the kernel owns both clip->Adam chains)."""
-    from rware_tpu.models.ippo import make_lr_schedule
-    from rware_tpu.models.ippo_pallas import (
-        _arrays_to_params,
-        _params_to_arrays,
-        phase_window_starts,
-    )
-
-    obs, action, logp_old, value_old, adv, target = dataset
-    t_full = action.shape[0]
-    mb_t = t_full // cfg.minibatches
-    P = cfg.epochs * cfg.minibatches
-
-    tb = getattr(update_fn, "time_block", 1)
-    starts = phase_window_starts(cfg, t_full, tb, key)
-
-    t_mean = adv.astype(jnp.float32).mean(axis=(1, 2, 3))
-    t_sqmean = (adv.astype(jnp.float32) ** 2).mean(axis=(1, 2, 3))
-    widx = (starts[:, None] + jnp.arange(mb_t)[None, :]) % t_full
-    w_mean = t_mean[widx].mean(axis=1)
-    w_var = jnp.maximum(t_sqmean[widx].mean(axis=1) - w_mean**2, 0.0)
-    advstats = jnp.stack(
-        [w_mean, 1.0 / (jnp.sqrt(w_var) + 1e-8)], axis=1
-    )
-
-    a_adam = opt_state["actor"][1][0]
-    c_adam = opt_state["critic"][1][0]
-    count = a_adam.count
-    sched = make_lr_schedule(cfg)
-    q = jnp.arange(P, dtype=jnp.int32)
-    t_adam = (count + q + 1).astype(jnp.float32)
-    hyper = jnp.stack(
-        [
-            jax.vmap(lambda c: jnp.asarray(sched(c), jnp.float32))(
-                count + q
-            ),
-            1.0 / (1.0 - jnp.power(0.9, t_adam)),
-            1.0 / (1.0 - jnp.power(0.999, t_adam)),
-        ],
-        axis=1,
-    )
-
-    new_a, new_amu, new_anu, new_c, new_cmu, new_cnu, mets = update_fn(
-        _params_to_arrays(params["actor"]),
-        _params_to_arrays(a_adam.mu),
-        _params_to_arrays(a_adam.nu),
-        _critic_params_to_arrays(params["critic"], perm),
-        _critic_params_to_arrays(c_adam.mu, perm),
-        _critic_params_to_arrays(c_adam.nu, perm),
-        (obs, action, logp_old, value_old, adv, target),
-        starts, advstats, hyper,
-    )
-    new_params = {
-        "actor": _arrays_to_params(new_a, params["actor"]),
-        "critic": _arrays_to_critic_params(
-            new_c, params["critic"], inv_perm
-        ),
-    }
-
-    def bump(part_state, adam, mu, nu, like, to_params):
-        new_adam = adam._replace(
-            count=adam.count + P,
-            mu=to_params(mu, like),
-            nu=to_params(nu, like),
-        )
-        sched_state = part_state[1][1]
-        if "count" in getattr(sched_state, "_fields", ()):
-            sched_state = sched_state._replace(
-                count=sched_state.count + P
-            )
-        return (part_state[0], (new_adam, sched_state))
-
-    new_opt_state = {
-        "actor": bump(
-            opt_state["actor"], a_adam, new_amu, new_anu,
-            params["actor"], _arrays_to_params,
-        ),
-        "critic": bump(
-            opt_state["critic"], c_adam, new_cmu, new_cnu,
-            params["critic"],
-            lambda arrs, like: _arrays_to_critic_params(
-                arrs, like, inv_perm
-            ),
-        ),
-    }
-
-    inv_n = 1.0 / (
-        mb_t * action.shape[1] * action.shape[2] * action.shape[3]
-    )
-    metrics = {
-        "pg_loss": -(mets[:, 0] * inv_n),
-        "v_loss": mets[:, 1] * inv_n,
-        "entropy": mets[:, 2] * inv_n,
-        "approx_kl": mets[:, 3] * inv_n,
-    }
-    return (new_params, new_opt_state), metrics
+    return train_step

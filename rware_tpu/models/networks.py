@@ -1,25 +1,67 @@
-"""Policy/value networks for warehouse agents.
+"""Policy/value networks for warehouse agents, in plain JAX.
 
 The reference ships no models (SURVEY.md §2: "no training code"); the
 framework's learner stack targets the IPPO/SEAC-style baselines usually run
-on RWARE.  Networks are flax modules with parameter sharing across agents:
-inputs are (..., N, obs_dim) and the agent axis is just another batch axis,
-so one MXU-friendly matmul serves all agents of all envs.
+on RWARE.  Parameters are shared across agents: inputs are
+(..., N, obs_dim) and the agent axis is just another batch axis, so one
+matmul serves all agents of all envs.
+
+Each network is a frozen dataclass with ``init(key, *example_inputs) ->
+params`` and ``apply(params, *inputs)``.  ``params`` is the nested dict
+``{"params": {layer: {"kernel": (in, out), "bias": (out,)}}}`` with the
+layer names flax.linen gives the same architecture (``dense_i``,
+``policy``, ``value``, ``message``, ``embed``, ``gru/{ir,iz,in,hr,hz,hn}``),
+so checkpoints written by the earlier flax networks still load.
+Kernels are lecun-normal, biases zero, the GRU's recurrent kernels
+orthogonal; parameters are stored in float32 and each layer computes in its
+``dtype`` (bfloat16 hidden layers, float32 heads).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Sequence, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+_lecun_normal = jax.nn.initializers.lecun_normal()
+_orthogonal = jax.nn.initializers.orthogonal()
 
-class ActorCritic(nn.Module):
+
+def _dense_init(key, n_in, n_out, *, bias=True, kernel_init=_lecun_normal):
+    p = {"kernel": kernel_init(key, (n_in, n_out), jnp.float32)}
+    if bias:
+        p["bias"] = jnp.zeros((n_out,), jnp.float32)
+    return p
+
+
+def _dense(p, x, dtype):
+    """``x @ kernel + bias`` with inputs and parameters cast to ``dtype``
+    and the product computed in it."""
+    y = jax.lax.dot_general(
+        x.astype(dtype),
+        p["kernel"].astype(dtype),
+        (((x.ndim - 1,), (0,)), ((), ())),
+    )
+    if "bias" in p:
+        y = y + p["bias"].astype(dtype)
+    return y
+
+
+def _head_init(key, n_in, heads):
+    keys = jax.random.split(key, len(heads))
+    return {
+        name: _dense_init(k, n_in, width)
+        for k, (name, width) in zip(keys, heads)
+    }
+
+
+@dataclasses.dataclass(frozen=True)
+class ActorCritic:
     """Shared-parameter MLP actor-critic.
 
-    Returns (logits over n_actions, value).  All hidden compute is bfloat16
-    on TPU (MXU native); logits/values are returned float32 for numerics.
+    ``apply`` returns (logits over n_actions, value); hidden layers compute
+    in ``dtype`` (bfloat16), logits and values in float32.
 
     ``msg_bits > 0`` adds an independent-Bernoulli message head (the env's
     MultiDiscrete([5, 2, ..., 2]) action space, reference
@@ -31,25 +73,39 @@ class ActorCritic(nn.Module):
     n_actions: int = 5
     hidden: Sequence[int] = (128, 128)
     msg_bits: int = 0
-    dtype: jnp.dtype = jnp.bfloat16
+    dtype: Any = jnp.bfloat16
 
-    @nn.compact
-    def __call__(self, obs: jax.Array) -> Tuple[Any, jax.Array]:
-        x = obs.astype(self.dtype)
-        for i, width in enumerate(self.hidden):
-            x = nn.Dense(width, dtype=self.dtype, name=f"dense_{i}")(x)
-            x = nn.tanh(x)
-        logits = nn.Dense(self.n_actions, dtype=jnp.float32, name="policy")(x)
-        value = nn.Dense(1, dtype=jnp.float32, name="value")(x)
+    def _heads(self):
+        heads = [("policy", self.n_actions), ("value", 1)]
         if self.msg_bits > 0:
-            msg_logits = nn.Dense(
-                self.msg_bits, dtype=jnp.float32, name="message"
-            )(x)
-            return (logits, msg_logits), jnp.squeeze(value, axis=-1)
-        return logits, jnp.squeeze(value, axis=-1)
+            heads.append(("message", self.msg_bits))
+        return heads
+
+    def init(self, key: jax.Array, obs: jax.Array) -> dict:
+        widths = (obs.shape[-1], *self.hidden)
+        k_trunk, k_head = jax.random.split(key)
+        keys = jax.random.split(k_trunk, len(self.hidden))
+        p = {
+            f"dense_{i}": _dense_init(keys[i], widths[i], widths[i + 1])
+            for i in range(len(self.hidden))
+        }
+        p.update(_head_init(k_head, widths[-1], self._heads()))
+        return {"params": p}
+
+    def apply(self, params: dict, obs: jax.Array) -> Tuple[Any, jax.Array]:
+        p = params["params"]
+        x = obs
+        for i in range(len(self.hidden)):
+            x = jnp.tanh(_dense(p[f"dense_{i}"], x, self.dtype))
+        logits = _dense(p["policy"], x, jnp.float32)
+        value = _dense(p["value"], x, jnp.float32)[..., 0]
+        if self.msg_bits > 0:
+            return (logits, _dense(p["message"], x, jnp.float32)), value
+        return logits, value
 
 
-class CentralCritic(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class CentralCritic:
     """Centralized value function for MAPPO: V(joint obs) -> one value per
     agent.
 
@@ -65,47 +121,84 @@ class CentralCritic(nn.Module):
 
     n_agents: int
     hidden: Sequence[int] = (128, 128)
-    dtype: jnp.dtype = jnp.bfloat16
+    dtype: Any = jnp.bfloat16
 
-    @nn.compact
-    def __call__(self, joint_obs: jax.Array) -> jax.Array:
-        x = joint_obs.astype(self.dtype)
-        for i, width in enumerate(self.hidden):
-            x = nn.Dense(width, dtype=self.dtype, name=f"dense_{i}")(x)
-            x = nn.tanh(x)
-        return nn.Dense(
-            self.n_agents, dtype=jnp.float32, name="value"
-        )(x)  # (..., N)
+    def init(self, key: jax.Array, joint_obs: jax.Array) -> dict:
+        widths = (joint_obs.shape[-1], *self.hidden)
+        k_trunk, k_head = jax.random.split(key)
+        keys = jax.random.split(k_trunk, len(self.hidden))
+        p = {
+            f"dense_{i}": _dense_init(keys[i], widths[i], widths[i + 1])
+            for i in range(len(self.hidden))
+        }
+        p.update(_head_init(k_head, widths[-1], [("value", self.n_agents)]))
+        return {"params": p}
+
+    def apply(self, params: dict, joint_obs: jax.Array) -> jax.Array:
+        p = params["params"]
+        x = joint_obs
+        for i in range(len(self.hidden)):
+            x = jnp.tanh(_dense(p[f"dense_{i}"], x, self.dtype))
+        return _dense(p["value"], x, jnp.float32)  # (..., N)
 
 
-class RecurrentActorCritic(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class RecurrentActorCritic:
     """GRU actor-critic for partially observable play.
 
-    ``__call__(carry, obs)`` consumes one timestep; carry is the GRU state
-    (..., hidden).  Use ``initialize_carry`` for the zero state.  Designed to
-    sit inside the rollout ``lax.scan`` — the recurrence and the env step
-    compile into one fused program.
+    ``apply(params, carry, obs)`` consumes one timestep; carry is the GRU
+    state (..., hidden).  Use ``initialize_carry`` for the zero state.  It
+    sits inside the rollout ``lax.scan``, so the recurrence and the env
+    step compile into one program.  The cell is flax's GRUCell:
+    r = σ(W_ir x + b_ir + W_hr h), z = σ(W_iz x + b_iz + W_hz h),
+    n = tanh(W_in x + b_in + r (W_hn h + b_hn)), h' = (1 - z) n + z h.
     """
 
     n_actions: int = 5
     hidden: int = 128
     embed: int = 128
     msg_bits: int = 0
-    dtype: jnp.dtype = jnp.bfloat16
+    dtype: Any = jnp.bfloat16
 
-    @nn.compact
-    def __call__(self, carry, obs: jax.Array):
-        x = obs.astype(self.dtype)
-        x = nn.tanh(nn.Dense(self.embed, dtype=self.dtype, name="embed")(x))
-        carry, x = nn.GRUCell(self.hidden, dtype=self.dtype, name="gru")(carry, x)
-        logits = nn.Dense(self.n_actions, dtype=jnp.float32, name="policy")(x)
-        value = nn.Dense(1, dtype=jnp.float32, name="value")(x)
+    def init(self, key: jax.Array, carry: jax.Array, obs: jax.Array) -> dict:
+        del carry  # the hidden width is a field
+        k_embed, k_in, k_rec, k_head = jax.random.split(key, 4)
+        ki = jax.random.split(k_in, 3)
+        kh = jax.random.split(k_rec, 3)
+        e, h = self.embed, self.hidden
+        gru = {
+            name: _dense_init(k, e, h) for k, name in zip(ki, ("ir", "iz", "in"))
+        }
+        for k, name in zip(kh, ("hr", "hz", "hn")):
+            gru[name] = _dense_init(
+                k, h, h, bias=name == "hn", kernel_init=_orthogonal
+            )
+        heads = [("policy", self.n_actions), ("value", 1)]
         if self.msg_bits > 0:
-            msg_logits = nn.Dense(
-                self.msg_bits, dtype=jnp.float32, name="message"
-            )(x)
-            return carry, ((logits, msg_logits), jnp.squeeze(value, axis=-1))
-        return carry, (logits, jnp.squeeze(value, axis=-1))
+            heads.append(("message", self.msg_bits))
+        p = {
+            "embed": _dense_init(k_embed, obs.shape[-1], e),
+            "gru": gru,
+            **_head_init(k_head, h, heads),
+        }
+        return {"params": p}
+
+    def apply(self, params: dict, carry: jax.Array, obs: jax.Array):
+        p = params["params"]
+        g = p["gru"]
+        dt = self.dtype
+        x = jnp.tanh(_dense(p["embed"], obs, dt))
+        h = carry
+        r = jax.nn.sigmoid(_dense(g["ir"], x, dt) + _dense(g["hr"], h, dt))
+        z = jax.nn.sigmoid(_dense(g["iz"], x, dt) + _dense(g["hz"], h, dt))
+        n = jnp.tanh(_dense(g["in"], x, dt) + r * _dense(g["hn"], h, dt))
+        h = (1.0 - z) * n + z * h
+        logits = _dense(p["policy"], h, jnp.float32)
+        value = _dense(p["value"], h, jnp.float32)[..., 0]
+        if self.msg_bits > 0:
+            msg_logits = _dense(p["message"], h, jnp.float32)
+            return h, ((logits, msg_logits), value)
+        return h, (logits, value)
 
     def initialize_carry(self, batch_shape: Tuple[int, ...]) -> jax.Array:
         return jnp.zeros(batch_shape + (self.hidden,), dtype=self.dtype)

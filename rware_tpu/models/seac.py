@@ -9,10 +9,10 @@ via importance-weighted off-policy corrections —
   w_ij     = pi_i(a_j|o_j) / pi_j(a_j|o_j)   (stop-gradient)
 
 where A_ij / R_ij are advantage/return of agent j's experience evaluated
-with agent i's critic.  TPU mapping: per-agent parameters are ONE stacked
+with agent i's critic.  Layout: per-agent parameters are ONE stacked
 pytree with a leading agent axis, every cross-pair (i evaluates j's
 experience) is a vmap x vmap — an (N, N) grid of batched MLP forwards that
-XLA batches into single MXU matmuls.
+XLA batches into single matmuls.
 """
 from __future__ import annotations
 
@@ -22,8 +22,8 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 import jax
 import jax.numpy as jnp
 import optax
-from flax import struct
 
+from rware_tpu import pytree
 from rware_tpu.core.env import Warehouse
 from rware_tpu.models.networks import ActorCritic, sample_action
 
@@ -41,7 +41,8 @@ class SEACConfig:
     max_grad_norm: float = 0.5
 
 
-class SEACRunner(struct.PyTreeNode):
+@pytree.dataclass
+class SEACRunner:
     params: Any  # stacked per-agent params, leading axis N
     opt_state: Any
     env_states: Any  # (B, ...)
@@ -265,8 +266,8 @@ def build_seac_train_step(
 # SEAC-PPO: the shared-experience objective on a PPO trust region.
 #
 # The paper's 5-step A2C needs tens of millions of steps before the sparse
-# delivery reward registers (its Table 2 budgets); on TPU the long-rollout
-# PPO machinery is nearly free, so this variant keeps SEAC's defining
+# delivery reward registers (its Table 2 budgets); on an accelerator the
+# long-rollout PPO machinery is cheap, so this variant keeps SEAC's defining
 # structure — per-agent parameters, each agent learning from every agent's
 # experience with importance weighting — but replaces the plain policy
 # gradient with the clipped surrogate: for agent i on agent j's data the
@@ -312,23 +313,11 @@ def build_seac_ppo_train_step(
     model: ActorCritic,
     tx: optax.GradientTransformation,
     cfg: SEACPPOConfig,
-    collect_mode: str = "xla",
-    interpret: bool = False,
-    deterministic_collect: bool = False,
-    update_mode: str = "auto",
 ) -> Callable[[SEACRunner], Tuple[SEACRunner, dict]]:
-    """``collect_mode="pallas"`` runs the rollout through the fused collect
-    kernel with PER-AGENT weights (ops/pallas_rollout
-    build_pallas_collect(policy="mlp_per_agent")).  Message configs ride
-    both paths: the kernel's per-agent Bernoulli heads sample the bits
-    in-kernel, and every cross log-prob/ratio is joint over (move, bits).
-
-    ``update_mode``: "fused" computes the shared-experience PPO gradients
-    with the per-agent Pallas kernel (ops/pallas_update
-    .build_fused_seac_ppo_grads) on the kernel-native trajectory —
-    time-window minibatches, obs bf16, activations in VMEM; "xla" keeps
-    the flat cross-forward autodiff update.  "auto" picks "fused" when
-    the collect is pallas and the config has no message bits."""
+    """One jitted shared-experience PPO update: per-agent XLA collect ->
+    old-policy cross values -> cross GAE -> E x M minibatch updates over
+    the (N_i, N_j) grid.  Message configs take every cross log-prob and
+    ratio jointly over (move, bits)."""
     step_fn = jax.vmap(env._step_fn)
     reset_fn = env._reset_fn
     from rware_tpu.models.ippo import policy_obs_fn
@@ -338,55 +327,6 @@ def build_seac_ppo_train_step(
     n = env.n_agents
     eye = jnp.eye(n)  # (N_i, N_j)
     msg_mode = getattr(model, "msg_bits", 0) > 0
-
-    if update_mode == "auto":
-        update_mode = (
-            "fused" if collect_mode == "pallas" and not msg_mode else "xla"
-        )
-        if update_mode == "fused":
-            # the per-agent SEAC kernel folds the N_j sharing axis into
-            # each cell; configs with no Mosaic-legal fold fall back
-            from rware_tpu.ops.pallas_rollout import LANE as _LANE
-            from rware_tpu.ops.pallas_update import _pick_fold_rb_chunk
-
-            try:
-                _pick_fold_rb_chunk(
-                    cfg.n_envs // _LANE, env.n_agents
-                )
-            except ValueError:
-                update_mode = "xla"
-    if update_mode == "fused":
-        if collect_mode != "pallas" or msg_mode:
-            raise ValueError(
-                "update_mode='fused' needs collect_mode='pallas' and no "
-                "message bits (the per-agent gradient kernel has no "
-                "Bernoulli head)"
-            )
-        if cfg.rollout_len % cfg.minibatches:
-            raise ValueError(
-                f"minibatches={cfg.minibatches} must divide "
-                f"rollout_len={cfg.rollout_len} (time-window minibatches)"
-            )
-
-    pallas_collect = None
-    if collect_mode == "pallas":
-        from rware_tpu.models.ippo_pallas import _pick_tc_len
-        from rware_tpu.ops.pallas_rollout import (
-            ENV_BLOCK,
-            build_pallas_collect,
-        )
-
-        pallas_collect = build_pallas_collect(
-            env.config,
-            cfg.rollout_len,
-            tc_len=_pick_tc_len(cfg.rollout_len),
-            interpret=interpret,
-            deterministic=deterministic_collect,
-            policy="mlp_per_agent",
-            native_traj=update_mode == "fused",
-        )
-        n_tc = max(1, cfg.rollout_len // _pick_tc_len(cfg.rollout_len))
-        streams_per_update = (cfg.n_envs // ENV_BLOCK) * n_tc
 
     def apply_own(params, obs):
         return jax.vmap(
@@ -479,159 +419,15 @@ def build_seac_ppo_train_step(
             "approx_kl": ((own_ratio - 1) - jnp.log(own_ratio)).mean(),
         }
 
-    if update_mode == "fused":
-        from rware_tpu.models.ippo_pallas import _native_forward
-        from rware_tpu.ops.pallas_rollout import LANE
-        from rware_tpu.ops.pallas_update import build_fused_seac_ppo_grads
-
-        rb = cfg.n_envs // LANE
-        t_mb = cfg.rollout_len // cfg.minibatches
-        grads_fn = build_fused_seac_ppo_grads(
-            obs_len=env.config.policy_obs_length,
-            hidden=tuple(model.hidden),
-            n_actions=env.n_actions,
-            rollout_len=t_mb,
-            n_agents=n,
-            mb_rows=rb,
-            clip_eps=cfg.clip_eps,
-            vf_coef=cfg.vf_coef,
-            ent_coef=cfg.ent_coef,
-            seac_lambda=cfg.seac_lambda,
-            interpret=interpret,
-        )
-
-        def train_step_fused(runner: SEACRunner) -> Tuple[SEACRunner, dict]:
-            key, k_perm = jax.random.split(runner.key, 2)
-            seed = runner.update_idx * jnp.int32(streams_per_update)
-            env_states, traj = pallas_collect(
-                runner.env_states, runner.params, seed
-            )
-            obs = jax.vmap(obs_fn)(env_states)
-
-            # old-policy cross values on the native trajectory: agent i's
-            # critic over agent j's observations, (T, N_i, N_j, RB, LANE)
-            _, values_cross = jax.vmap(
-                lambda p: _native_forward(p, traj["obs"]), out_axes=1
-            )(runner.params)
-            _, last_vc = jax.vmap(
-                lambda p: model.apply(p, obs), out_axes=1
-            )(runner.params)  # (B, N_i, N_j)
-            last_vc_n = jnp.transpose(last_vc, (1, 2, 0)).reshape(
-                n, n, rb, LANE
-            )
-
-            not_done = 1.0 - traj["done"].astype(jnp.float32)  # (T,1,RB,L)
-
-            def gae_body(carry, xs):
-                g, next_v = carry
-                v, r, nd = xs
-                delta = r[None] + cfg.gamma * next_v * nd[None] - v
-                g = delta + cfg.gamma * cfg.gae_lambda * nd[None] * g
-                return (g, v), g
-
-            (_, _), adv_cross = jax.lax.scan(
-                gae_body,
-                (jnp.zeros_like(last_vc_n), last_vc_n),
-                (values_cross, traj["reward"], not_done),
-                reverse=True,
-            )
-            target_cross = adv_cross + values_cross
-
-            dataset = (
-                traj["obs"], traj["action"], traj["logp"],
-                values_cross, adv_cross, target_cross,
-            )
-
-            def sgd_step(params, opt_state, batch):
-                grads, metrics = grads_fn(params, batch)
-                updates, opt_state = tx.update(grads, opt_state, params)
-                return (
-                    optax.apply_updates(params, updates), opt_state, metrics
-                )
-
-            # wrapped time-window minibatches without the per-epoch
-            # jnp.roll: one self-concat per update, minibatches are plain
-            # slices of the doubled time extent at (idx*t_mb - off) % T —
-            # identical windows, 4x less glue HBM traffic (the same
-            # restructure measured 13.5 ms -> ~1 ms on the GRU path,
-            # tools/gru_bisect.py E vs G)
-            doubled = tuple(
-                jnp.concatenate([x, x], axis=0) for x in dataset
-            )
-
-            def epoch(carry, k):
-                params, opt_state = carry
-                off = jax.random.randint(k, (), 0, cfg.rollout_len)
-
-                def minibatch(carry, idx):
-                    params, opt_state = carry
-                    start = (idx * t_mb - off) % cfg.rollout_len
-                    batch = tuple(
-                        jax.lax.dynamic_slice_in_dim(x, start, t_mb, 0)
-                        for x in doubled
-                    )
-                    params, opt_state, metrics = sgd_step(
-                        params, opt_state, batch
-                    )
-                    return (params, opt_state), metrics
-
-                return jax.lax.scan(
-                    minibatch, (params, opt_state),
-                    jnp.arange(cfg.minibatches),
-                )
-
-            (params, opt_state), metrics = jax.lax.scan(
-                epoch,
-                (runner.params, runner.opt_state),
-                jax.random.split(k_perm, cfg.epochs),
-            )
-            out_metrics = {
-                "reward_per_env": traj["reward"].sum() / cfg.n_envs,
-                "episodes_done": traj["done"].sum(),
-                **jax.tree.map(lambda x: x.mean(), metrics),
-            }
-            return (
-                SEACRunner(
-                    params=params,
-                    opt_state=opt_state,
-                    env_states=env_states,
-                    obs=obs,
-                    key=key,
-                    update_idx=runner.update_idx + 1,
-                ),
-                out_metrics,
-            )
-
-        return train_step_fused
-
     def train_step(runner: SEACRunner) -> Tuple[SEACRunner, dict]:
         key, k_roll, k_perm = jax.random.split(runner.key, 3)
         params = runner.params
-        if pallas_collect is not None:
-            seed = runner.update_idx * jnp.int32(streams_per_update)
-            env_states, ktraj = pallas_collect(
-                runner.env_states, params, seed
-            )
-            obs = jax.vmap(obs_fn)(env_states)
-            action = ktraj["action"]
-            if msg_mode:
-                action = jnp.concatenate(
-                    [action[..., None], ktraj["bits"]], axis=-1
-                )
-            traj = SEACTransition(
-                obs=ktraj["obs"].astype(jnp.float32),
-                action=action,
-                logp=ktraj["logp"],
-                reward=ktraj["reward"],
-                done=ktraj["done"].astype(jnp.bool_),
-            )
-        else:
-            roll_keys = jax.random.split(k_roll, cfg.rollout_len)
-            (params, env_states, obs), traj = jax.lax.scan(
-                collect,
-                (runner.params, runner.env_states, runner.obs),
-                roll_keys,
-            )
+        roll_keys = jax.random.split(k_roll, cfg.rollout_len)
+        (params, env_states, obs), traj = jax.lax.scan(
+            collect,
+            (runner.params, runner.env_states, runner.obs),
+            roll_keys,
+        )
 
         # old-policy cross evaluation for advantages/targets/old values
         _, values_cross = jax.vmap(
@@ -738,7 +534,7 @@ def build_seac_ppo_train_step(
 # j's experience replays agent i's GRU over agent j's OBSERVATION SEQUENCE
 # (episode-boundary carry resets included, exactly as in collection).  The
 # (N_i, N_j) grid of replays is one lax.scan over time of a doubly-vmapped
-# GRU cell — N^2 batched MXU matmuls per step, the TPU-friendly layout.
+# GRU cell — N^2 batched matmuls per step.
 #
 # Initial hidden for cross streams: the diagonal (own stream) uses the
 # carry stored at rollout start, so the first epoch's own-ratio is exactly
@@ -750,7 +546,8 @@ def build_seac_ppo_train_step(
 # ---------------------------------------------------------------------------
 
 
-class SEACGRURunner(struct.PyTreeNode):
+@pytree.dataclass
+class SEACGRURunner:
     params: Any  # stacked per-agent GRU params, leading axis N
     opt_state: Any
     env_states: Any  # (B, ...)
@@ -848,30 +645,15 @@ def build_seac_gru_train_step(
     model,
     tx: optax.GradientTransformation,
     cfg: "SEACPPOConfig",
-    collect_mode: str = "xla",
-    interpret: bool = False,
-    deterministic_collect: bool = False,
     remat: Optional[bool] = None,
-    mesh=None,
-    mesh_axis: str = "env",
 ) -> Callable[[SEACGRURunner], Tuple[SEACGRURunner, dict]]:
     """One jitted recurrent shared-experience PPO update: per-agent GRU
     collect (own streams) -> cross recurrent replay for old values ->
     cross GAE -> E x M ENV-BAND minibatch updates (recurrent replay
     cannot slice time), each replaying the (N_i, N_j) GRU grid through
     jax.value_and_grad.  Message bits ride the same joint (move, bits)
-    machinery as the MLP variant.
-
-    ``collect_mode="pallas"`` runs the rollout through the fused collect
-    kernel with PER-AGENT GRUs in-kernel (ops/pallas_rollout
-    build_pallas_collect(policy="gru_per_agent") — each agent's carry in
-    VMEM scratch, episode-boundary resets in-kernel); "xla" keeps the
-    T-scan fallback.
-
-    With ``mesh`` the step shard_maps over the env axis (data parallel:
-    env_states/obs/carry sharded, params replicated, per-minibatch
-    gradient pmean) — the same wrapper every other learner uses
-    (parallel.sharding.shard_map_train_step)."""
+    machinery as the MLP variant.  ``remat`` (default: decided from the
+    replay's residual size) recomputes the cell in the backward sweep."""
     step_fn = jax.vmap(env._step_fn)
     reset_fn = env._reset_fn
     from rware_tpu.models.ippo import policy_obs_fn
@@ -890,44 +672,15 @@ def build_seac_gru_train_step(
             f"minibatches={cfg.minibatches} must divide "
             f"n_envs={cfg.n_envs} (env-band minibatches)"
         )
-    n_shards = int(mesh.shape[mesh_axis]) if mesh is not None else 1
-    axis_name = mesh_axis if mesh is not None else None
-    if cfg.n_envs % (cfg.minibatches * n_shards):
-        raise ValueError(
-            f"n_envs={cfg.n_envs} must divide over "
-            f"{cfg.minibatches} minibatches x {n_shards} shards"
-        )
-    n_local = cfg.n_envs // n_shards
     if remat is None:
         # auto: the minibatch replay's autodiff residuals scale with
-        # T x (local envs/minibatches) x N^2 x 4H bf16 x ~4 tensors;
+        # T x (envs/minibatches) x N^2 x 4H bf16 x ~4 tensors;
         # remat past ~2^31 elements (tiny-2ag at B=4096 fits without)
         resid = (
-            4.0 * cfg.rollout_len * (n_local // cfg.minibatches)
+            4.0 * cfg.rollout_len * (cfg.n_envs // cfg.minibatches)
             * n * n * 4 * 128
         )
         remat = resid > 2**31
-
-    pallas_collect = None
-    if collect_mode == "pallas":
-        from rware_tpu.models.ippo_pallas import _pick_tc_len
-        from rware_tpu.ops.pallas_rollout import (
-            ENV_BLOCK,
-            build_pallas_collect,
-        )
-
-        pallas_collect = build_pallas_collect(
-            env.config,
-            cfg.rollout_len,
-            tc_len=_pick_tc_len(cfg.rollout_len),
-            interpret=interpret,
-            deterministic=deterministic_collect,
-            policy="gru_per_agent",
-            hidden=(int(model.embed), int(model.hidden)),
-        )
-        n_tc = max(1, cfg.rollout_len // _pick_tc_len(cfg.rollout_len))
-        streams_per_update = (cfg.n_envs // ENV_BLOCK) * n_tc
-        streams_per_shard = (n_local // ENV_BLOCK) * n_tc
 
     def apply_own(params, carry, obs):
         # params (N,...) x carry (B, N, H) x obs (B, N, L)
@@ -1024,39 +777,12 @@ def build_seac_gru_train_step(
         key, k_roll, k_perm = jax.random.split(runner.key, 3)
         params = runner.params
         h0_diag = runner.carry
-        if pallas_collect is not None:
-            seed = runner.update_idx * jnp.int32(streams_per_update)
-            if axis_name is not None:
-                seed = seed + jax.lax.axis_index(axis_name) * jnp.int32(
-                    streams_per_shard
-                )
-            env_states, carry, ktraj = pallas_collect(
-                runner.env_states, params, seed, h0=runner.carry
-            )
-            obs = jax.vmap(obs_fn)(env_states)
-            action = ktraj["action"]
-            if msg_mode:
-                action = jnp.concatenate(
-                    [action[..., None], ktraj["bits"]], axis=-1
-                )
-            traj = SEACTransition(
-                obs=ktraj["obs"].astype(jnp.float32),
-                action=action,
-                logp=ktraj["logp"],
-                reward=ktraj["reward"],
-                done=ktraj["done"].astype(jnp.bool_),
-            )
-        else:
-            if axis_name is not None:
-                k_roll = jax.random.fold_in(
-                    k_roll, jax.lax.axis_index(axis_name)
-                )
-            roll_keys = jax.random.split(k_roll, cfg.rollout_len)
-            (params, env_states, obs, carry), traj = jax.lax.scan(
-                collect,
-                (params, runner.env_states, runner.obs, runner.carry),
-                roll_keys,
-            )
+        roll_keys = jax.random.split(k_roll, cfg.rollout_len)
+        (params, env_states, obs, carry), traj = jax.lax.scan(
+            collect,
+            (params, runner.env_states, runner.obs, runner.carry),
+            roll_keys,
+        )
 
         # old-policy cross values (recurrent replay) + bootstrap
         _, values_cross, last_c = _gru_cross_replay(
@@ -1091,15 +817,12 @@ def build_seac_gru_train_step(
             traj.obs, traj.done, traj.action, traj.logp,
             values_cross, adv_cross, target_cross,
         )
-        mb = n_local // cfg.minibatches
+        mb = cfg.n_envs // cfg.minibatches
 
         def sgd_step(params, opt_state, batch):
             (loss, metrics), grads = jax.value_and_grad(
                 minibatch_loss, has_aux=True
             )(params, batch)
-            if axis_name is not None:
-                grads = jax.lax.pmean(grads, axis_name)
-                metrics = jax.lax.pmean(metrics, axis_name)
             updates, opt_state = tx.update(grads, opt_state, params)
             return (
                 optax.apply_updates(params, updates), opt_state, metrics
@@ -1107,7 +830,7 @@ def build_seac_gru_train_step(
 
         def epoch(carry_e, k):
             params, opt_state = carry_e
-            off = jax.random.randint(k, (), 0, n_local)
+            off = jax.random.randint(k, (), 0, cfg.n_envs)
             rolled = jax.tree.map(
                 lambda x: jnp.roll(x, off, axis=1), dataset
             )
@@ -1138,14 +861,9 @@ def build_seac_gru_train_step(
             (params, runner.opt_state),
             jax.random.split(k_perm, cfg.epochs),
         )
-        reward_sum = traj.reward.sum()
-        episodes = traj.done.sum()
-        if axis_name is not None:
-            reward_sum = jax.lax.psum(reward_sum, axis_name)
-            episodes = jax.lax.psum(episodes, axis_name)
         out_metrics = {
-            "reward_per_env": reward_sum / cfg.n_envs,
-            "episodes_done": episodes,
+            "reward_per_env": traj.reward.sum() / cfg.n_envs,
+            "episodes_done": traj.done.sum(),
             **jax.tree.map(lambda x: x.mean(), metrics),
         }
         return (
@@ -1161,13 +879,4 @@ def build_seac_gru_train_step(
             out_metrics,
         )
 
-    if mesh is None:
-        return train_step
-    from rware_tpu.parallel import shard_map_train_step
-
-    return shard_map_train_step(
-        train_step, mesh,
-        SEACGRURunner(params=None, opt_state=None, env_states=None,
-                      obs=None, carry=None, key=None, update_idx=None),
-        env_fields=("env_states", "obs", "carry"), axis=mesh_axis,
-    )
+    return train_step

@@ -1,7 +1,3 @@
 from rware_tpu.ops.resolver import resolve_moves
 
 __all__ = ["resolve_moves"]
-
-# Pallas kernels are imported lazily (jax.experimental.pallas pulls in the
-# Mosaic stack): rware_tpu.ops.pallas_rollout.{build_pallas_rollout,
-# build_pallas_collect}

@@ -13,7 +13,6 @@ from rware_tpu.parallel.sharding import (
     replicate,
     replicated,
     shard_env_batch,
-    shard_map_train_step,
 )
 
 __all__ = [
@@ -29,5 +28,4 @@ __all__ = [
     "replicate",
     "replicated",
     "shard_env_batch",
-    "shard_map_train_step",
 ]

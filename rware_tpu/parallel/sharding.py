@@ -2,9 +2,11 @@
 
 The reference is single-process with no distributed layer (SURVEY.md §2).
 Scale-out here is the canonical JAX recipe: one ``Mesh`` whose ``env`` axis
-spans all chips (ICI within a slice, DCN across slices), env-batched state
-pytrees sharded on their leading axis, parameters replicated.  XLA inserts
-the collectives; nothing in the engine changes.
+spans all devices, env-batched state pytrees sharded on their leading axis,
+parameters replicated.  Every learner's train step is one jitted program:
+XLA partitions it from those input shardings and inserts the collectives
+(NCCL all-reduces of the gradients on GPUs); nothing in the engine or the
+learners changes, and a sharded step computes what the unsharded one does.
 
 Multi-host usage: call ``jax.distributed.initialize()`` first, build the mesh
 over ``jax.devices()`` (global), and create sharded batches with
@@ -128,31 +130,3 @@ def replicate(tree: Any, mesh: Mesh) -> Any:
         )
 
     return jax.tree.map(leaf, tree)
-
-
-def shard_map_train_step(train_step, mesh: Mesh, runner_template: Any,
-                         env_fields: Sequence[str],
-                         axis: str = ENV_AXIS):
-    """shard_map a (runner) -> (runner, metrics) train step over ``axis``:
-    the runner fields named in ``env_fields`` are sharded on their leading
-    env-batch dimension, everything else (params, optimizer state, key,
-    counters) is replicated.  Shared by the IPPO, recurrent-IPPO and MAPPO
-    builders so the wrapper exists once.
-
-    ``runner_template`` is an INSTANCE of the runner dataclass (values are
-    ignored — only the field set matters); pytree-prefix specs apply each
-    field's PartitionSpec to every leaf under it."""
-    fields = type(runner_template).__dataclass_fields__
-    specs = type(runner_template)(
-        **{
-            f: (P(axis) if f in env_fields else P())
-            for f in fields
-        }
-    )
-    return jax.shard_map(
-        train_step,
-        mesh=mesh,
-        in_specs=(specs,),
-        out_specs=(specs, P()),
-        check_vma=False,
-    )

@@ -8,10 +8,48 @@ tensorboard-compatible device trace around any code block, and
 from __future__ import annotations
 
 import contextlib
+import subprocess
 import time
 from typing import Iterator, Optional
 
 import jax
+
+
+def require_gpu(program: str) -> jax.Device:
+    """The first JAX device, which must be a GPU.  A measurement that finds
+    none exits non-zero instead of timing whatever backend is there."""
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        raise SystemExit(
+            f"{program} measures the GPU, and JAX found none "
+            f"(platform {dev.platform!r})"
+        )
+    return dev
+
+
+def device_record() -> dict:
+    """The device as JAX reports it, for every printed result."""
+    devs = jax.devices()
+    return {
+        "platform": devs[0].platform,
+        "kind": devs[0].device_kind,
+        "count": len(devs),
+    }
+
+
+def card_info() -> str:
+    """``name, power.limit`` of the first GPU as nvidia-smi reports them
+    (a card set below its maximum power runs slower under load), or ""
+    where nvidia-smi is absent."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60, check=True,
+        ).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return ""
+    return out.splitlines()[0] if out else ""
 
 
 @contextlib.contextmanager

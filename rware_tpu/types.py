@@ -1,4 +1,4 @@
-"""Public enums and constants of the TPU-native RWARE framework.
+"""Public enums and constants of the JAX RWARE framework.
 
 These mirror the reference API surface (``/root/reference/rware/warehouse.py:31-70``)
 so that user code written against the reference can switch over without edits.

@@ -1,5 +1,6 @@
-"""MAPPO (centralized-critic PPO, models/mappo.py): train step on the
-fused collect path (interpret mode), critic centralization, loss wiring."""
+"""MAPPO (centralized-critic PPO, models/mappo.py): train steps with the
+MLP and GRU actors, critic centralization, loss wiring, data-parallel
+sharding."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -8,145 +9,104 @@ import rware_tpu
 from rware_tpu.models import IPPOConfig
 
 
+def _max_change(a, b):
+    return max(
+        jax.tree.leaves(
+            jax.tree.map(
+                lambda x, y: float(
+                    jnp.abs(x.astype(jnp.float32) - y.astype(jnp.float32)).max()
+                ),
+                a, b,
+            )
+        )
+    )
+
+
+def _step(build, init, env, cfg, runner=None):
+    r0, actor, critic, tx = init(env, cfg, jax.random.key(0))
+    ts = jax.jit(build(env, actor, critic, tx, cfg))
+    return r0, ts(r0 if runner is None else runner), (actor, critic)
+
+
 def test_mappo_train_step_runs_and_learns_signals():
     from rware_tpu.models.mappo import (
         build_mappo_train_step,
         init_mappo_runner,
     )
-    from rware_tpu.ops.pallas_rollout import ENV_BLOCK
 
     env = rware_tpu.make("rware-tiny-2ag-v2")
-    cfg = IPPOConfig(
-        n_envs=ENV_BLOCK, rollout_len=8, epochs=2, minibatches=2
+    cfg = IPPOConfig(n_envs=256, rollout_len=8, epochs=2, minibatches=2)
+    runner, (new_runner, metrics), _ = _step(
+        build_mappo_train_step, init_mappo_runner, env, cfg
     )
-    runner, actor, critic, tx = init_mappo_runner(
-        env, cfg, jax.random.key(0)
-    )
-    ts = jax.jit(
-        build_mappo_train_step(
-            env, actor, critic, tx, cfg, interpret=True,
-            deterministic_collect=True,
-        )
-    )
-    new_runner, metrics = ts(runner)
     assert int(new_runner.update_idx) == 1
     for k, v in metrics.items():
         assert np.isfinite(float(v)), k
     # both the actor and the central critic moved
     for part in ("actor", "critic"):
-        diffs = jax.tree.map(
-            lambda a, b: float(
-                jnp.abs(a.astype(jnp.float32) - b.astype(jnp.float32)).max()
-            ),
-            runner.params[part], new_runner.params[part],
-        )
-        assert max(jax.tree.leaves(diffs)) > 0, part
+        assert _max_change(runner.params[part], new_runner.params[part]) > 0
 
 
 def test_mappo_xla_collect_mode_runs():
-    """The CPU-runnable XLA collector feeds the same native update path."""
+    """The XLA collector stores the native trajectory layout: obs
+    (T, L, N, RB, LANE) bf16, per-agent tensors (T, N, RB, LANE), done
+    (T, 1, RB, LANE), and returns the post-rollout state and obs."""
     from rware_tpu.models.mappo import (
-        build_mappo_train_step,
+        LANE,
+        _build_native_collect,
         init_mappo_runner,
     )
 
     env = rware_tpu.make("rware-tiny-2ag-v2")
     cfg = IPPOConfig(n_envs=256, rollout_len=8, epochs=1, minibatches=2)
-    runner, actor, critic, tx = init_mappo_runner(
-        env, cfg, jax.random.key(0)
-    )
-    ts = jax.jit(
-        build_mappo_train_step(
-            env, actor, critic, tx, cfg, collect_mode="xla"
-        )
-    )
-    new_runner, metrics = ts(runner)
-    for k, v in metrics.items():
-        assert np.isfinite(float(v)), k
-    assert int(new_runner.update_idx) == 1
+    runner, actor, _, _ = init_mappo_runner(env, cfg, jax.random.key(0))
 
+    def policy(params, obs, h):
+        heads, _ = actor.apply(params, obs)
+        return heads, h
 
-def test_mappo_fused_actor_update_matches_autodiff():
-    """The fused-kernel actor path (build_fused_ppo_grads with vf_coef=0 +
-    XLA critic grads) produces the same update as jax.grad of
-    mappo_loss_native, within bf16 kernel tolerance — same deterministic
-    trajectory, one train step each."""
-    from rware_tpu.models.mappo import (
-        build_mappo_train_step,
-        init_mappo_runner,
+    collect = jax.jit(_build_native_collect(env, cfg, policy))
+    states, obs, h, traj = collect(
+        runner.params["actor"], runner.env_states, runner.obs, None,
+        jax.random.key(1),
     )
-    from rware_tpu.ops.pallas_rollout import ENV_BLOCK
-
-    env = rware_tpu.make("rware-tiny-2ag-v2")
-    cfg = IPPOConfig(
-        n_envs=ENV_BLOCK, rollout_len=8, epochs=1, minibatches=2
+    T, L, N, RB = 8, env.config.policy_obs_length, env.n_agents, 256 // LANE
+    assert traj["obs"].shape == (T, L, N, RB, LANE)
+    assert traj["obs"].dtype == jnp.bfloat16
+    for k in ("action", "logp", "reward"):
+        assert traj[k].shape == (T, N, RB, LANE), k
+    assert traj["done"].shape == (T, 1, RB, LANE)
+    assert h is None and obs.shape == runner.obs.shape
+    assert int(states.cur_steps[0]) == 8
+    # env b's first observation lands at row b // LANE, lane b % LANE
+    np.testing.assert_array_equal(
+        np.asarray(traj["obs"][0, :, :, 1, 3], np.float32),
+        np.asarray(runner.obs[LANE + 3], np.float32).T,
     )
-    runner, actor, critic, tx = init_mappo_runner(
-        env, cfg, jax.random.key(0)
-    )
-    # phase: whole-update-phase actor kernel + XLA critic scan over the
-    # shared window starts; perpass: per-minibatch fused actor kernel;
-    # xla: jax.grad of mappo_loss_native
-    modes = {
-        "phase": dict(fused_actor_update=True, fused_actor_phase=True),
-        "perpass": dict(fused_actor_update=True),
-        "combined": dict(fused_critic_update=True),  # the default path
-        "xla": dict(fused_actor_update=False),
-    }
-    outs = {}
-    for name, kw in modes.items():
-        ts = jax.jit(
-            build_mappo_train_step(
-                env, actor, critic, tx, cfg, interpret=True,
-                deterministic_collect=True, **kw,
-            )
-        )
-        outs[name] = ts(runner)
-    r_x, m_x = outs["xla"]
-    for name in ("phase", "perpass", "combined"):
-        r_f, m_f = outs[name]
-        for k in ("pg_loss", "entropy", "approx_kl", "v_loss"):
-            np.testing.assert_allclose(
-                float(jnp.mean(m_f[k])), float(jnp.mean(m_x[k])),
-                rtol=2e-2, atol=2e-3, err_msg=f"{name}:{k}",
-            )
-        for (path, a), (_, b) in zip(
-            jax.tree_util.tree_flatten_with_path(r_f.params)[0],
-            jax.tree_util.tree_flatten_with_path(r_x.params)[0],
-        ):
-            a = np.asarray(a, np.float32)
-            b = np.asarray(b, np.float32)
-            # Adam steps are ~lr-sized; bf16 kernel grads may flip
-            # near-zero directions, bounding agreement at a few lr
-            assert np.abs(a - b).max() < 5e-3, (name, path)
 
 
 def test_sharded_mappo_train_step_matches_metrics():
-    """shard_map'd MAPPO over the 8-device CPU mesh: runs, finite, and
-    rollout statistics equal the single-device step (same seed streams)."""
+    """MAPPO over the 8-device CPU mesh computes what the single-device
+    step does: the same rollout statistics and, up to summation order,
+    the same losses and parameters."""
     from rware_tpu.models.mappo import (
         build_mappo_train_step,
         init_mappo_runner,
     )
-    from rware_tpu.ops.pallas_rollout import ENV_BLOCK
-    from rware_tpu.parallel import make_mesh, replicate, shard_env_batch
 
     env = rware_tpu.make("rware-tiny-2ag-v2")
-    n_dev = len(jax.devices())
-    cfg = IPPOConfig(
-        n_envs=ENV_BLOCK * n_dev, rollout_len=8, epochs=1, minibatches=2
+    cfg = IPPOConfig(n_envs=1024, rollout_len=8, epochs=1, minibatches=2)
+    _assert_sharded_matches(
+        env, cfg, init_mappo_runner, build_mappo_train_step
     )
-    runner, actor, critic, tx = init_mappo_runner(
-        env, cfg, jax.random.key(0)
-    )
-    ts_single = jax.jit(
-        build_mappo_train_step(
-            env, actor, critic, tx, cfg, interpret=True,
-            deterministic_collect=True,
-        )
-    )
-    r1, m1 = ts_single(runner)
 
+
+def _assert_sharded_matches(env, cfg, init, build):
+    from rware_tpu.parallel import make_mesh, replicate, shard_env_batch
+
+    runner, actor, critic, tx = init(env, cfg, jax.random.key(0))
+    ts = jax.jit(build(env, actor, critic, tx, cfg))
+    r1, m1 = ts(runner)
     mesh = make_mesh()
     sharded = runner.replace(
         env_states=shard_env_batch(runner.env_states, mesh),
@@ -154,22 +114,18 @@ def test_sharded_mappo_train_step_matches_metrics():
         params=replicate(runner.params, mesh),
         opt_state=replicate(runner.opt_state, mesh),
     )
-    ts_mesh = jax.jit(
-        build_mappo_train_step(
-            env, actor, critic, tx, cfg, interpret=True,
-            deterministic_collect=True, mesh=mesh,
-        )
-    )
-    r2, m2 = ts_mesh(sharded)
-    for k, v in m2.items():
-        assert np.isfinite(float(v)), k
+    if hasattr(runner, "carry"):
+        sharded = sharded.replace(carry=shard_env_batch(runner.carry, mesh))
+    r2, m2 = ts(sharded)
     assert float(m1["episodes_done"]) == float(m2["episodes_done"])
-    np.testing.assert_allclose(
-        float(m1["reward_per_env"]), float(m2["reward_per_env"]), rtol=1e-5
-    )
-    assert all(
-        np.isfinite(np.asarray(x)).all() for x in jax.tree.leaves(r2.params)
-    )
+    for k in m1:
+        np.testing.assert_allclose(
+            float(m2[k]), float(m1[k]), rtol=1e-4, atol=1e-6, err_msg=k
+        )
+    for a, b in zip(jax.tree.leaves(r1.params), jax.tree.leaves(r2.params)):
+        np.testing.assert_allclose(
+            np.asarray(b, np.float32), np.asarray(a, np.float32), atol=1e-5
+        )
 
 
 def test_central_critic_is_centralized():
@@ -217,299 +173,159 @@ def test_mappo_loss_native_matches_apply():
     )
 
 
-def test_mappo_rowmajor_forward_matches_native():
-    """_critic_rowmajor_forward on (T, RB, LANE, N*L) rows (the fused
-    path's minor-axis-contraction layout) == _critic_native_forward on
-    the (T, N*L, RB, LANE) form — same math, different layout."""
-    from rware_tpu.models.mappo import (
-        _critic_native_forward,
-        _critic_rowmajor_forward,
-        _joint_native,
-        _joint_rowmajor,
-    )
-    from rware_tpu.models.networks import CentralCritic
-
-    T, L, N, RB, LANE = 3, 31, 2, 2, 128
-    critic = CentralCritic(n_agents=N)
-    params = critic.init(jax.random.key(0), jnp.zeros((1, N * L)))
-    obs = jax.random.normal(
-        jax.random.key(1), (T, L, N, RB, LANE)
-    ).astype(jnp.bfloat16)
-    v_native = _critic_native_forward(params, _joint_native(obs))
-    v_row = _critic_rowmajor_forward(params, _joint_rowmajor(obs))
-    assert v_row.shape == v_native.shape == (T, N, RB, LANE)
-    np.testing.assert_allclose(
-        np.asarray(v_row), np.asarray(v_native), atol=5e-2,
-    )
-
-
 def test_mappo_msg_bits_joint_policy():
     from rware_tpu.models.mappo import (
         build_mappo_train_step,
         init_mappo_runner,
     )
-    from rware_tpu.ops.pallas_rollout import ENV_BLOCK
 
     env = rware_tpu.make("rware-tiny-2ag-v2", msg_bits=2)
-    cfg = IPPOConfig(
-        n_envs=ENV_BLOCK, rollout_len=8, epochs=1, minibatches=2
-    )
-    runner, actor, critic, tx = init_mappo_runner(
-        env, cfg, jax.random.key(0)
+    cfg = IPPOConfig(n_envs=256, rollout_len=8, epochs=1, minibatches=2)
+    runner, (new_runner, metrics), (actor, _) = _step(
+        build_mappo_train_step, init_mappo_runner, env, cfg
     )
     assert actor.msg_bits == 2
-    ts = jax.jit(
-        build_mappo_train_step(
-            env, actor, critic, tx, cfg, interpret=True,
-            deterministic_collect=True,
-        )
-    )
-    new_runner, metrics = ts(runner)
     for k, v in metrics.items():
         assert np.isfinite(float(v)), k
-    msg_diff = jax.tree.map(
-        lambda a, b: float(
-            jnp.abs(a.astype(jnp.float32) - b.astype(jnp.float32)).max()
-        ),
+    assert _max_change(
         runner.params["actor"]["params"]["message"],
         new_runner.params["actor"]["params"]["message"],
+    ) > 0
+
+
+def _rnn_batch(env, actor, critic, key, msg_bits=0, t=6, rb=2):
+    """A random native-layout recurrent-MAPPO minibatch and params."""
+    from rware_tpu.models.mappo import LANE
+
+    n, l = env.n_agents, env.config.policy_obs_length
+    ks = jax.random.split(key, 10)
+    params = {
+        "actor": actor.init(
+            ks[0], actor.initialize_carry((1, n)), jnp.zeros((1, n, l))
+        ),
+        "critic": critic.init(ks[1], jnp.zeros((1, n * l))),
+    }
+    shape = (t, n, rb, LANE)
+    batch = (
+        (jax.random.uniform(ks[2], (t, l, n, rb, LANE)) < 0.3).astype(
+            jnp.bfloat16
+        ),
+        jax.random.randint(ks[3], shape, 0, 5),
+        -1.6 + 0.1 * jax.random.normal(ks[4], shape),
+        0.1 * jax.random.normal(ks[5], shape),
+        jax.random.normal(ks[6], shape),
+        0.1 * jax.random.normal(ks[7], shape),
+        (jax.random.uniform(ks[8], (t, 1, rb, LANE)) < 0.1).astype(jnp.int32),
+        actor.initialize_carry((n, rb, LANE)),
     )
-    assert max(jax.tree.leaves(msg_diff)) > 0
+    if msg_bits:
+        batch += (
+            jax.random.bernoulli(ks[9], 0.5, (t, n * msg_bits, rb, LANE))
+            .astype(jnp.int32),
+        )
+    return params, batch
+
+
+def _assert_critic_grad_is_value_loss_grad(msg_bits):
+    """The critic's gradient of the joint recurrent-MAPPO loss is exactly
+    vf_coef x the gradient of the clipped value loss of the central critic
+    alone (autodiff through _critic_native_forward): the actor terms take
+    no part in it."""
+    from rware_tpu.models.mappo import (
+        _critic_native_forward,
+        _joint_native,
+        rnn_mappo_loss_native,
+    )
+    from rware_tpu.models.networks import CentralCritic, RecurrentActorCritic
+
+    env = rware_tpu.make("rware-tiny-2ag-v2", msg_bits=msg_bits)
+    actor = RecurrentActorCritic(hidden=16, embed=16, msg_bits=msg_bits)
+    critic = CentralCritic(n_agents=env.n_agents, hidden=(32, 32))
+    cfg = IPPOConfig()
+    params, batch = _rnn_batch(env, actor, critic, jax.random.key(3), msg_bits)
+    grads = jax.grad(
+        lambda p: rnn_mappo_loss_native(cfg, actor, p, batch)[0]
+    )(params)
+    obs, _, _, old_value, _, target = batch[:6]
+
+    def value_loss(cp):
+        value = _critic_native_forward(cp, _joint_native(obs))
+        clipped = old_value + jnp.clip(
+            value - old_value, -cfg.clip_eps, cfg.clip_eps
+        )
+        return cfg.vf_coef * 0.5 * jnp.maximum(
+            (value - target) ** 2, (clipped - target) ** 2
+        ).mean()
+
+    ref = jax.grad(value_loss)(params["critic"])
+    for a, b in zip(jax.tree.leaves(grads["critic"]), jax.tree.leaves(ref)):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-5,
+                                   atol=1e-7)
+    return grads
 
 
 def test_rnn_mappo_train_step_runs_and_critic_matches_xla():
-    """Recurrent MAPPO (GRU actor via the fused collect kernel + central
-    critic): the step runs in interpret mode, metrics are finite, the
-    carry advances, and the fused-critic path produces the same update as
-    the XLA critic autodiff fallback (same deterministic trajectory)."""
+    """Recurrent MAPPO (GRU actor + central critic): the step runs,
+    metrics are finite, the carry advances and both parts move; the
+    critic's gradient is the central value loss's (see the helper)."""
     from rware_tpu.models.mappo import (
         build_rnn_mappo_train_step,
         init_rnn_mappo_runner,
     )
-    from rware_tpu.ops.pallas_rollout import ENV_BLOCK
 
     env = rware_tpu.make("rware-tiny-2ag-v2")
-    cfg = IPPOConfig(
-        n_envs=ENV_BLOCK, rollout_len=8, epochs=1, minibatches=2
+    cfg = IPPOConfig(n_envs=256, rollout_len=8, epochs=1, minibatches=2)
+    runner, (r1, m1), _ = _step(
+        build_rnn_mappo_train_step, init_rnn_mappo_runner, env, cfg
     )
-    runner, actor, critic, tx = init_rnn_mappo_runner(
-        env, cfg, jax.random.key(0)
+    for k, v in m1.items():
+        assert np.isfinite(float(v)), k
+    assert int(r1.update_idx) == 1
+    assert not np.array_equal(
+        np.asarray(r1.carry, np.float32), np.asarray(runner.carry, np.float32)
     )
-    outs = {}
-    for fused in (True, False):
-        ts = jax.jit(
-            build_rnn_mappo_train_step(
-                env, actor, critic, tx, cfg, interpret=True,
-                deterministic_collect=True, fused_critic_update=fused,
-            )
-        )
-        r1, m1 = ts(runner)
-        outs[fused] = (r1, m1)
-        for k, v in m1.items():
-            assert np.isfinite(float(v)), k
-        assert int(r1.update_idx) == 1
-        assert not np.array_equal(
-            np.asarray(r1.carry, np.float32),
-            np.asarray(runner.carry, np.float32),
-        )
-    for (p1, a), (_, b) in zip(
-        jax.tree_util.tree_flatten_with_path(outs[True][0].params)[0],
-        jax.tree_util.tree_flatten_with_path(outs[False][0].params)[0],
-    ):
-        a = np.asarray(a, np.float32)
-        b = np.asarray(b, np.float32)
-        assert np.abs(a - b).max() < 5e-3, p1
+    for part in ("actor", "critic"):
+        assert _max_change(runner.params[part], r1.params[part]) > 0
+    _assert_critic_grad_is_value_loss_grad(msg_bits=0)
 
 
 def test_rnn_mappo_msg_bits_joint_policy_and_critic_parity():
-    """Recurrent MAPPO WITH message bits — the last capability-frontier
-    combination: GRU actor + Bernoulli message head (joint move+msg loss
-    via rnn_ppo_loss_native's 9-entry batch) + central critic over the
-    msg-augmented joint obs.  Checks the step runs, the message head
-    takes gradient, and the fused critic kernel matches the XLA critic
-    autodiff fallback on the identical deterministic trajectory."""
+    """Recurrent MAPPO WITH message bits: GRU actor + Bernoulli message
+    head (joint move+msg loss) + central critic over the msg-augmented
+    joint obs.  The step runs, the message head takes gradient, and the
+    critic's gradient is the central value loss's."""
     from rware_tpu.models.mappo import (
         build_rnn_mappo_train_step,
         init_rnn_mappo_runner,
     )
-    from rware_tpu.ops.pallas_rollout import ENV_BLOCK
 
     env = rware_tpu.make("rware-tiny-2ag-v2", msg_bits=2)
-    cfg = IPPOConfig(
-        n_envs=ENV_BLOCK, rollout_len=8, epochs=1, minibatches=2
-    )
-    runner, actor, critic, tx = init_rnn_mappo_runner(
-        env, cfg, jax.random.key(0)
+    cfg = IPPOConfig(n_envs=256, rollout_len=8, epochs=1, minibatches=2)
+    runner, (r1, m1), (actor, _) = _step(
+        build_rnn_mappo_train_step, init_rnn_mappo_runner, env, cfg
     )
     assert actor.msg_bits == 2
-    outs = {}
-    for fused in (True, False):
-        ts = jax.jit(
-            build_rnn_mappo_train_step(
-                env, actor, critic, tx, cfg, interpret=True,
-                deterministic_collect=True, fused_critic_update=fused,
-            )
-        )
-        r1, m1 = ts(runner)
-        outs[fused] = r1
-        for k, v in m1.items():
-            assert np.isfinite(float(v)), k
-        assert int(r1.update_idx) == 1
-    # the message head moved (bits are part of the joint actor loss)
-    msg_diff = jax.tree.map(
-        lambda a, b: float(
-            jnp.abs(a.astype(jnp.float32) - b.astype(jnp.float32)).max()
-        ),
-        runner.params["actor"]["params"]["message"],
-        outs[True].params["actor"]["params"]["message"],
-    )
-    assert max(jax.tree.leaves(msg_diff)) > 0
-    # fused critic kernel == XLA critic autodiff on the same trajectory
-    for (p1, a), (_, b) in zip(
-        jax.tree_util.tree_flatten_with_path(outs[True].params)[0],
-        jax.tree_util.tree_flatten_with_path(outs[False].params)[0],
-    ):
-        a = np.asarray(a, np.float32)
-        b = np.asarray(b, np.float32)
-        assert np.abs(a - b).max() < 5e-3, p1
-
-
-def test_mappo_phase_kernel_matches_per_pass():
-    """The whole-phase MAPPO kernel (both parts' E x M passes + both
-    clip->Adam chains in ONE Pallas program) produces the same updated
-    params and optimizer state as the per-pass combined kernel + optax
-    (same deterministic trajectory, same window starts)."""
-    from rware_tpu.models.mappo import (
-        build_mappo_train_step,
-        init_mappo_runner,
-    )
-    from rware_tpu.ops.pallas_rollout import ENV_BLOCK
-
-    env = rware_tpu.make("rware-tiny-2ag-v2")
-    cfg = IPPOConfig(
-        n_envs=ENV_BLOCK, rollout_len=8, epochs=2, minibatches=2
-    )
-    runner, actor, critic, tx = init_mappo_runner(
-        env, cfg, jax.random.key(0)
-    )
-    outs = {}
-    for phase in (False, True):
-        ts = jax.jit(
-            build_mappo_train_step(
-                env, actor, critic, tx, cfg, interpret=True,
-                deterministic_collect=True, fused_critic_update=True,
-                fused_critic_phase=phase,
-            )
-        )
-        r1, _ = ts(runner)
-        r2, _ = ts(r1)
-        outs[phase] = r2
-    for (p1, a), (_, b) in zip(
-        jax.tree_util.tree_flatten_with_path(outs[False].params)[0],
-        jax.tree_util.tree_flatten_with_path(outs[True].params)[0],
-    ):
-        a = np.asarray(a, np.float32)
-        b = np.asarray(b, np.float32)
-        scale = max(np.abs(a).max(), 1e-8)
-        assert np.abs(a - b).max() / scale < 2e-3, p1
-    # optimizer counts advanced identically on both parts
-    fa = jax.tree.leaves(outs[False].opt_state)
-    fb = jax.tree.leaves(outs[True].opt_state)
-    for a, b in zip(fa, fb):
-        if np.asarray(a).ndim == 0:
-            assert int(a) == int(b)
-
-
-def test_mappo_image_obs_combined_kernel():
-    """IMAGE observations flow through the combined actor+critic kernel
-    unchanged (the critic conditions on the joint flattened image
-    features) — one interpret-mode step, finite losses, both parts move."""
-    from rware_tpu.models.mappo import (
-        build_mappo_train_step,
-        init_mappo_runner,
-    )
-    from rware_tpu.ops.pallas_rollout import ENV_BLOCK
-    from rware_tpu.types import ObservationType
-
-    env = rware_tpu.make(
-        rware_tpu.WarehouseConfig(
-            observation_type=ObservationType.IMAGE, request_queue_size=2
-        )
-    )
-    cfg = IPPOConfig(
-        n_envs=ENV_BLOCK, rollout_len=8, epochs=1, minibatches=2
-    )
-    runner, actor, critic, tx = init_mappo_runner(
-        env, cfg, jax.random.key(0)
-    )
-    ts = jax.jit(
-        build_mappo_train_step(
-            env, actor, critic, tx, cfg, interpret=True,
-            deterministic_collect=True,
-        )
-    )
-    r1, m = ts(runner)
-    for k, v in m.items():
+    for k, v in m1.items():
         assert np.isfinite(float(v)), k
-    for part in ("actor", "critic"):
-        diffs = jax.tree.map(
-            lambda a, b: float(
-                jnp.abs(a.astype(jnp.float32) - b.astype(jnp.float32)).max()
-            ),
-            runner.params[part], r1.params[part],
-        )
-        assert max(jax.tree.leaves(diffs)) > 0, part
+    assert _max_change(
+        runner.params["actor"]["params"]["message"],
+        r1.params["actor"]["params"]["message"],
+    ) > 0
+    grads = _assert_critic_grad_is_value_loss_grad(msg_bits=2)
+    assert float(jnp.abs(grads["actor"]["params"]["message"]["kernel"]).max()) > 0
 
 
 def test_sharded_rnn_mappo_msg_train_step_matches_metrics():
-    """shard_map'd recurrent MAPPO WITH message bits over the 8-device
-    CPU mesh (the round-5 capability-frontier learner): runs, finite,
-    rollout statistics equal the single-device step (same seed streams),
-    and the GRU carry shards along the env axis."""
+    """Recurrent MAPPO with message bits over the 8-device CPU mesh (the
+    GRU carry sharded along the env axis) computes what the single-device
+    step does."""
     from rware_tpu.models.mappo import (
         build_rnn_mappo_train_step,
         init_rnn_mappo_runner,
     )
-    from rware_tpu.ops.pallas_rollout import ENV_BLOCK
-    from rware_tpu.parallel import make_mesh, replicate, shard_env_batch
 
     env = rware_tpu.make("rware-tiny-2ag-v2", msg_bits=2)
-    n_dev = len(jax.devices())
-    cfg = IPPOConfig(
-        n_envs=ENV_BLOCK * n_dev, rollout_len=8, epochs=1, minibatches=2
-    )
-    runner, actor, critic, tx = init_rnn_mappo_runner(
-        env, cfg, jax.random.key(0)
-    )
-    ts_single = jax.jit(
-        build_rnn_mappo_train_step(
-            env, actor, critic, tx, cfg, interpret=True,
-            deterministic_collect=True,
-        )
-    )
-    r1, m1 = ts_single(runner)
-
-    mesh = make_mesh()
-    sharded = runner.replace(
-        env_states=shard_env_batch(runner.env_states, mesh),
-        obs=shard_env_batch(runner.obs, mesh),
-        carry=shard_env_batch(runner.carry, mesh),
-        params=replicate(runner.params, mesh),
-        opt_state=replicate(runner.opt_state, mesh),
-    )
-    ts_mesh = jax.jit(
-        build_rnn_mappo_train_step(
-            env, actor, critic, tx, cfg, interpret=True,
-            deterministic_collect=True, mesh=mesh,
-        )
-    )
-    r2, m2 = ts_mesh(sharded)
-    for k, v in m2.items():
-        assert np.isfinite(float(v)), k
-    assert float(m1["episodes_done"]) == float(m2["episodes_done"])
-    np.testing.assert_allclose(
-        float(m1["reward_per_env"]), float(m2["reward_per_env"]), rtol=1e-5
-    )
-    assert all(
-        np.isfinite(np.asarray(x)).all() for x in jax.tree.leaves(r2.params)
+    cfg = IPPOConfig(n_envs=1024, rollout_len=8, epochs=1, minibatches=2)
+    _assert_sharded_matches(
+        env, cfg, init_rnn_mappo_runner, build_rnn_mappo_train_step
     )

@@ -86,22 +86,6 @@ def test_msg_gru_train_step_end_to_end():
     assert float(jnp.mean(runner.env_states.agent_message)) > 0
 
 
-def test_msg_gru_pallas_path_builds():
-    """msg_bits + GRU + the fused collect path now builds (the native
-    recurrent update models the joint move+Bernoulli policy; the full
-    run is exercised by test_ippo_rnn.test_rnn_pallas_train_step_msg_bits)."""
-    from rware_tpu.models.ippo_rnn import (
-        build_rnn_pallas_train_step,
-        init_rnn_runner,
-    )
-
-    env = rware_tpu.make("rware-tiny-2ag-v2", msg_bits=2)
-    cfg = IPPOConfig(n_envs=8, rollout_len=8)
-    runner, model, tx = init_rnn_runner(env, cfg, jax.random.key(0))
-    ts = build_rnn_pallas_train_step(env, model, tx, cfg, interpret=True)
-    assert callable(ts)
-
-
 def test_msg_entropy_includes_bits():
     """Uniform message head adds msg_bits * ln2 of entropy."""
     from rware_tpu.models.ippo import ppo_loss

@@ -92,72 +92,6 @@ def test_seac_ppo_improves_on_value_objective():
     assert abs(float(metrics["approx_kl"])) < 0.5
 
 
-def test_per_agent_kernel_collect_matches_apply_own():
-    """build_pallas_collect(policy='mlp_per_agent') forwards each agent
-    through its OWN stacked weights: deterministic actions == argmax of
-    models.seac apply_own (modulo rare bf16 near-ties)."""
-    import jax.numpy as jnp
-
-    from rware_tpu.models.seac import SEACConfig, init_seac
-    from rware_tpu.ops.pallas_rollout import ENV_BLOCK, build_pallas_collect
-    from rware_tpu.parallel import batched_reset
-
-    env = rware_tpu.make("rware-tiny-2ag-v2")
-    cfg = SEACConfig(n_envs=ENV_BLOCK)
-    runner, model, tx = init_seac(env, cfg, jax.random.key(0))
-    states, _ = batched_reset(env, jax.random.key(2), ENV_BLOCK)
-
-    collect = build_pallas_collect(
-        env.config, 8, tc_len=8, interpret=True, deterministic=True,
-        policy="mlp_per_agent",
-    )
-    _, traj = collect(states, runner.params, 0)
-
-    obs = jax.vmap(env._obs_fn)(states)
-    logits, values = jax.vmap(
-        lambda p, o: model.apply(p, o), in_axes=(0, 1), out_axes=1
-    )(runner.params, obs)
-    mismatch = (
-        np.asarray(traj["action"][0]) != np.asarray(jnp.argmax(logits, -1))
-    ).mean()
-    assert mismatch < 0.01, mismatch
-    np.testing.assert_allclose(
-        np.asarray(traj["value"][0]), np.asarray(values), atol=3e-2
-    )
-    # the two agents' policies genuinely differ (independent inits)
-    a = np.asarray(traj["action"][0])
-    assert (a[:, 0] != a[:, 1]).mean() > 0.05
-
-
-def test_seac_ppo_pallas_collect_train_step_runs():
-    from rware_tpu.models.seac import (
-        SEACPPOConfig,
-        build_seac_ppo_train_step,
-        init_seac_ppo,
-    )
-    from rware_tpu.ops.pallas_rollout import ENV_BLOCK
-
-    env = rware_tpu.make("rware-tiny-2ag-v2")
-    cfg = SEACPPOConfig(
-        n_envs=ENV_BLOCK, rollout_len=8, epochs=1, minibatches=2
-    )
-    runner, model, tx = init_seac_ppo(env, cfg, jax.random.key(0))
-    ts = jax.jit(
-        build_seac_ppo_train_step(
-            env, model, tx, cfg, collect_mode="pallas", interpret=True,
-            deterministic_collect=True,
-        )
-    )
-    new_runner, metrics = ts(runner)
-    assert int(new_runner.update_idx) == 1
-    for k, v in metrics.items():
-        assert np.isfinite(float(v)), k
-    for a, b in zip(
-        jax.tree.leaves(runner.params), jax.tree.leaves(new_runner.params)
-    ):
-        assert np.abs(np.asarray(a) - np.asarray(b)).max() > 0
-
-
 def test_seac_msg_train_step_runs():
     """SEAC A2C on a msg_bits config: joint (move, bits) cross log-probs."""
     from rware_tpu.models.seac import (
@@ -179,71 +113,6 @@ def test_seac_msg_train_step_runs():
         jax.tree.leaves(runner.params), jax.tree.leaves(new_runner.params)
     ):
         assert np.isfinite(np.asarray(b)).all()
-
-
-def test_seac_ppo_msg_pallas_collect_train_step_runs():
-    """SEAC-PPO on a msg_bits config THROUGH the per-agent collect kernel:
-    in-kernel Bernoulli heads, joint logp, XLA shared-experience update."""
-    from rware_tpu.models.seac import (
-        SEACPPOConfig,
-        build_seac_ppo_train_step,
-        init_seac_ppo,
-    )
-    from rware_tpu.ops.pallas_rollout import ENV_BLOCK
-
-    env = rware_tpu.make(rware_tpu.WarehouseConfig(msg_bits=2))
-    cfg = SEACPPOConfig(
-        n_envs=ENV_BLOCK, rollout_len=8, epochs=1, minibatches=2
-    )
-    runner, model, tx = init_seac_ppo(env, cfg, jax.random.key(0))
-    ts = jax.jit(
-        build_seac_ppo_train_step(
-            env, model, tx, cfg, collect_mode="pallas", interpret=True,
-            deterministic_collect=True,
-        )
-    )
-    new_runner, metrics = ts(runner)
-    assert int(new_runner.update_idx) == 1
-    for k, v in metrics.items():
-        assert np.isfinite(float(v)), k
-    for a, b in zip(
-        jax.tree.leaves(runner.params), jax.tree.leaves(new_runner.params)
-    ):
-        assert np.abs(np.asarray(a) - np.asarray(b)).max() > 0
-
-
-def test_seac_ppo_fused_update_train_step_runs():
-    """Full native SEAC-PPO: per-agent collect kernel + fused per-agent
-    gradient kernel, time-window minibatches."""
-    from rware_tpu.models.seac import (
-        SEACPPOConfig,
-        build_seac_ppo_train_step,
-        init_seac_ppo,
-    )
-    from rware_tpu.ops.pallas_rollout import ENV_BLOCK
-
-    env = rware_tpu.make("rware-tiny-2ag-v2")
-    cfg = SEACPPOConfig(
-        n_envs=ENV_BLOCK, rollout_len=8, epochs=1, minibatches=2
-    )
-    runner, model, tx = init_seac_ppo(env, cfg, jax.random.key(0))
-    ts = jax.jit(
-        build_seac_ppo_train_step(
-            env, model, tx, cfg, collect_mode="pallas", interpret=True,
-            deterministic_collect=True, update_mode="fused",
-        )
-    )
-    new_runner, metrics = ts(runner)
-    assert int(new_runner.update_idx) == 1
-    for k, v in metrics.items():
-        assert np.isfinite(float(v)), k
-    for a, b in zip(
-        jax.tree.leaves(runner.params), jax.tree.leaves(new_runner.params)
-    ):
-        assert np.abs(np.asarray(a) - np.asarray(b)).max() > 0
-
-
-# --- Recurrent SEAC-PPO (per-agent GRUs + shared experience) -----------------
 
 
 def test_seac_gru_train_step_runs_and_learns_shape():
@@ -369,135 +238,6 @@ def test_seac_gru_msg_bits_train_step_runs():
     assert all(kern[i].max() > 0 for i in range(env.n_agents))
 
 
-def test_gru_per_agent_kernel_collect_matches_apply_own():
-    """build_pallas_collect(policy='gru_per_agent') runs each agent's OWN
-    GRU in-kernel: a full deterministic T-step rollout must match the XLA
-    per-agent scan step-for-step (argmax actions modulo rare bf16
-    near-ties, values and the returned carry numerically)."""
-    import jax.numpy as jnp
-
-    from rware_tpu.models.seac import SEACPPOConfig, init_seac_gru
-    from rware_tpu.ops.pallas_rollout import ENV_BLOCK, build_pallas_collect
-    from rware_tpu.parallel import batched_reset
-    from rware_tpu.parallel.rollout import autoreset_select
-
-    env = rware_tpu.make("rware-tiny-2ag-v2")
-    cfg = SEACPPOConfig(n_envs=ENV_BLOCK)
-    runner, model, tx = init_seac_gru(env, cfg, jax.random.key(0))
-    states, _ = batched_reset(env, jax.random.key(2), ENV_BLOCK)
-    t = 8
-
-    collect = build_pallas_collect(
-        env.config, t, tc_len=4, interpret=True, deterministic=True,
-        policy="gru_per_agent", hidden=(model.embed, model.hidden),
-    )
-    h0 = model.initialize_carry((ENV_BLOCK, env.n_agents))
-    _, new_h, traj = collect(states, runner.params, 0, h0=h0)
-
-    # XLA reference: per-agent GRU scan with argmax actions
-    from rware_tpu.models.ippo import policy_obs_fn
-
-    obs_fn = jax.vmap(policy_obs_fn(env))
-    step_fn = jax.vmap(env._step_fn)
-
-    def body(carry, _):
-        st, obs, h = carry
-        nh, (logits, value) = jax.vmap(
-            lambda p, c, o: model.apply(p, c, o), in_axes=(0, 1, 1),
-            out_axes=1,
-        )(runner.params, h, obs)
-        action = jnp.argmax(logits, -1).astype(jnp.int32)
-        res = step_fn(st, action)
-        nst = jax.vmap(
-            lambda s, d: autoreset_select(env._reset_fn, s, d)
-        )(res.state, res.done)
-        nh = jnp.where(res.done[:, None, None], jnp.zeros_like(nh), nh)
-        return (nst, obs_fn(nst), nh), (action, value)
-
-    (_, _, h_ref), (acts, vals) = jax.lax.scan(
-        body, (states, obs_fn(states), h0), None, length=t
-    )
-    acts_k = np.asarray(traj["action"])
-    mismatch = (acts_k != np.asarray(acts)).mean()
-    assert mismatch < 0.01, mismatch
-    # values: compare on envs whose t=0 actions agree (a bf16 near-tie
-    # flip desynchronizes that env's later stream)
-    agree0 = (acts_k[0] == np.asarray(acts[0])).all(axis=-1)
-    assert agree0.mean() > 0.98, agree0.mean()
-    np.testing.assert_allclose(
-        np.asarray(traj["value"][0])[agree0],
-        np.asarray(vals[0])[agree0], atol=3e-2,
-    )
-    agree_all = (acts_k == np.asarray(acts)).all(axis=(0, 2))
-    if agree_all.any():
-        np.testing.assert_allclose(
-            np.asarray(new_h, np.float32)[agree_all],
-            np.asarray(h_ref, np.float32)[agree_all],
-            atol=3e-2,
-        )
-    # the two agents' recurrent policies genuinely differ
-    a = acts_k[0]
-    assert (a[:, 0] != a[:, 1]).mean() > 0.05
-
-
-def test_seac_gru_pallas_collect_train_step_runs():
-    """Full recurrent SEAC through the per-agent GRU collect kernel
-    (interpret mode): finite metrics, params move, carry threads."""
-    from rware_tpu.models.seac import (
-        SEACPPOConfig,
-        build_seac_gru_train_step,
-        init_seac_gru,
-    )
-    from rware_tpu.ops.pallas_rollout import ENV_BLOCK
-
-    env = rware_tpu.make("rware-tiny-2ag-v2")
-    cfg = SEACPPOConfig(
-        n_envs=ENV_BLOCK, rollout_len=8, epochs=1, minibatches=2
-    )
-    runner, model, tx = init_seac_gru(env, cfg, jax.random.key(0))
-    ts = jax.jit(
-        build_seac_gru_train_step(
-            env, model, tx, cfg, collect_mode="pallas", interpret=True,
-            deterministic_collect=True,
-        )
-    )
-    r1, metrics = ts(runner)
-    assert int(r1.update_idx) == 1
-    for k, v in metrics.items():
-        assert np.isfinite(float(v)), k
-    for a, b in zip(
-        jax.tree.leaves(runner.params), jax.tree.leaves(r1.params)
-    ):
-        assert np.abs(
-            np.asarray(a, np.float32) - np.asarray(b, np.float32)
-        ).max() > 0
-    assert r1.carry.shape == runner.carry.shape
-
-
-def test_seac_gru_msg_pallas_collect_train_step_runs():
-    from rware_tpu.models.seac import (
-        SEACPPOConfig,
-        build_seac_gru_train_step,
-        init_seac_gru,
-    )
-    from rware_tpu.ops.pallas_rollout import ENV_BLOCK
-
-    env = rware_tpu.make("rware-tiny-2ag-v2", msg_bits=2)
-    cfg = SEACPPOConfig(
-        n_envs=ENV_BLOCK, rollout_len=8, epochs=1, minibatches=2
-    )
-    runner, model, tx = init_seac_gru(env, cfg, jax.random.key(1))
-    ts = jax.jit(
-        build_seac_gru_train_step(
-            env, model, tx, cfg, collect_mode="pallas", interpret=True,
-            deterministic_collect=True,
-        )
-    )
-    r1, metrics = ts(runner)
-    for k, v in metrics.items():
-        assert np.isfinite(float(v)), k
-
-
 def test_seac_gru_remat_matches_no_remat():
     """jax.checkpoint on the cross-replay cell must not change the
     update: params after one train step identical (it only trades
@@ -528,53 +268,34 @@ def test_seac_gru_remat_matches_no_remat():
 
 
 def test_sharded_seac_gru_train_step_matches_metrics():
-    """shard_map'd recurrent SEAC over the 8-device CPU mesh: runs,
-    finite, rollout statistics equal the single-device step (same
-    deterministic collect), carry shards along the env axis — every
-    learner in the suite is mesh-capable."""
+    """Recurrent SEAC over the 8-device CPU mesh, the carry sharded along
+    the env axis: the same rollout statistics as the single-device step,
+    and the same parameters up to summation order."""
     from rware_tpu.models.seac import (
         SEACPPOConfig,
         build_seac_gru_train_step,
         init_seac_gru,
     )
-    from rware_tpu.ops.pallas_rollout import ENV_BLOCK
-    from rware_tpu.parallel import make_mesh, replicate, shard_env_batch
+    from rware_tpu.parallel import make_mesh
+    from train import shard_runner
 
     env = rware_tpu.make("rware-tiny-2ag-v2")
-    n_dev = len(jax.devices())
-    cfg = SEACPPOConfig(
-        n_envs=ENV_BLOCK * n_dev, rollout_len=8, epochs=1, minibatches=1
-    )
+    cfg = SEACPPOConfig(n_envs=64, rollout_len=8, epochs=1, minibatches=1)
     runner, model, tx = init_seac_gru(env, cfg, jax.random.key(0))
-    ts_single = jax.jit(
-        build_seac_gru_train_step(
-            env, model, tx, cfg, collect_mode="pallas", interpret=True,
-            deterministic_collect=True,
-        )
-    )
-    r1, m1 = ts_single(runner)
-
-    mesh = make_mesh()
-    sharded = runner.replace(
-        env_states=shard_env_batch(runner.env_states, mesh),
-        obs=shard_env_batch(runner.obs, mesh),
-        carry=shard_env_batch(runner.carry, mesh),
-        params=replicate(runner.params, mesh),
-        opt_state=replicate(runner.opt_state, mesh),
-    )
-    ts_mesh = jax.jit(
-        build_seac_gru_train_step(
-            env, model, tx, cfg, collect_mode="pallas", interpret=True,
-            deterministic_collect=True, mesh=mesh,
-        )
-    )
-    r2, m2 = ts_mesh(sharded)
+    ts = jax.jit(build_seac_gru_train_step(env, model, tx, cfg))
+    r1, m1 = ts(runner)
+    r2, m2 = ts(shard_runner(runner, make_mesh()))
     for k, v in m2.items():
         assert np.isfinite(float(v)), k
     assert float(m1["episodes_done"]) == float(m2["episodes_done"])
     np.testing.assert_allclose(
         float(m1["reward_per_env"]), float(m2["reward_per_env"]), rtol=1e-5
     )
-    assert all(
-        np.isfinite(np.asarray(x)).all() for x in jax.tree.leaves(r2.params)
+    assert len(r2.carry.sharding.device_set) == len(jax.devices())
+    np.testing.assert_array_equal(
+        np.asarray(r1.carry, np.float32), np.asarray(r2.carry, np.float32)
     )
+    for a, b in zip(jax.tree.leaves(r1.params), jax.tree.leaves(r2.params)):
+        np.testing.assert_allclose(
+            np.asarray(b, np.float32), np.asarray(a, np.float32), atol=3e-4
+        )
