@@ -6,8 +6,9 @@
 
 Default phases:
   0. device: the card (nvidia-smi), JAX, XLA flags; no GPU -> exit 1.
-  1. engine parity: the XLA batched rollout on the GPU and on the host
-     CPU, bit for bit, on three configurations.
+  1. the tests marked ``gpu``, run in-process: engine parity, the XLA
+     batched rollout on the GPU and on the host CPU bit for bit, on
+     three configurations.
   2. rollout at full size: bench.main at B=65,536, T=256.
   3. IPPO (MLP 128x128) at full width through train.main; its first
      update on the GPU against the CPU; a full-precision forward check.
@@ -30,7 +31,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
 
 # BASELINE.json configuration #5: a custom layout string, IMAGE
 # observations and 16 agents
@@ -56,6 +58,7 @@ SMALL_IPPO = [
     "--env", "rware-tiny-2ag-v2", "--n-envs", "256", "--rollout-len", "16",
     "--updates", "1", "--log-every", "1",
 ]
+# IPPO at full width: phase 3 on one card, --four on four against one
 FULL_IPPO = [
     "--env", "rware-tiny-2ag-v2", "--n-envs", "16384", "--rollout-len", "128",
     "--updates", "3", "--log-every", "1",
@@ -72,11 +75,10 @@ LEARNERS = [
     ["--algo", "mappo", "--net", "gru", "--msg-bits", "2"],
     ["--env", "rware-img-tiny-2ag-v2", "--net", "gru"],
 ]
-# four cards: train.py --mesh against the same run on one card
-FOUR_IPPO = [
-    "--env", "rware-tiny-2ag-v2", "--n-envs", "16384", "--rollout-len", "128",
-    "--updates", "3", "--log-every", "1",
-]
+# bound on the relative L2 gap between two runs' parameter updates, GPU
+# against CPU and four cards against one: about 3x the largest gap read
+# on H100 cards (0.0089 GPU vs CPU; 0.0013 and 0.0041 four cards vs one)
+MAX_REL_UPDATE = 0.03
 METRICS = ("pg_loss", "v_loss", "entropy", "approx_kl", "reward_per_env",
            "episodes_done")
 
@@ -180,13 +182,16 @@ def compare_runs(label, hist_ref, hist, params_ref, params, params0,
     assert rel < max_rel_update, f"{label}: relative update gap {rel}"
 
 
-def ippo_init_params(n_envs, rollout_len, seed=0, device=None):
-    """The parameters train.py starts IPPO from for these arguments."""
+def ippo_init_params(argv, seed=0, device=None):
+    """The parameters train.main(argv) starts IPPO from."""
     import rware_tpu
     from rware_tpu.models import IPPOConfig, init_runner
 
+    def arg(flag):
+        return int(argv[argv.index(flag) + 1])
+
     env = rware_tpu.make("rware-tiny-2ag-v2")
-    cfg = IPPOConfig(n_envs=n_envs, rollout_len=rollout_len)
+    cfg = IPPOConfig(n_envs=arg("--n-envs"), rollout_len=arg("--rollout-len"))
     with jax.default_device(device or jax.devices()[0]):
         runner, model, _ = init_runner(env, cfg, jax.random.key(seed))
     return jax.device_get(runner.params), model, env
@@ -211,13 +216,34 @@ def phase_device():
     require_gpu("chip_smoke.py")
 
 
-def phase_engine_parity():
-    gpu, cpu = jax.devices()[0], jax.devices("cpu")[0]
-    for name, config in parity_configs().items():
-        where = engine_parity(gpu, cpu, config, PARITY_ENVS, PARITY_STEPS)
-        assert where is None, f"{name}: GPU and CPU rollouts differ: {where}"
-        print(f"  {name}: GPU == CPU bit for bit (B={PARITY_ENVS}, "
-              f"T={PARITY_STEPS})", flush=True)
+class _Outcomes:
+    """pytest plugin: the node ids that passed, and those that did not."""
+
+    def __init__(self):
+        self.passed, self.not_passed = [], []
+
+    def pytest_runtest_logreport(self, report):
+        if report.when == "call" and report.passed:
+            self.passed.append(report.nodeid)
+        elif report.failed or report.skipped:
+            self.not_passed.append(report.nodeid)
+
+
+def phase_gpu_tests():
+    """The tests marked ``gpu`` (tests/test_gpu.py: engine parity, GPU
+    against CPU), in this process.  Without the suite's conftest, which
+    pins the test run to the CPU."""
+    import pytest
+
+    outcomes = _Outcomes()
+    rc = pytest.main(
+        ["-v", "-m", "gpu", "--noconftest", "-p", "no:cacheprovider",
+         os.path.join(ROOT, "tests", "test_gpu.py")],
+        plugins=[outcomes],
+    )
+    assert rc == 0 and outcomes.passed and not outcomes.not_passed, (
+        f"gpu tests: exit {rc}, not passed {outcomes.not_passed}"
+    )
 
 
 def phase_rollout():
@@ -236,10 +262,7 @@ def phase_ippo():
     print(f"  [{card_info()}] IPPO {' '.join(FULL_IPPO)}", flush=True)
     runner, history = train.main(FULL_IPPO)
     check_finite(history, "ippo")
-    params0, model, env = ippo_init_params(
-        int(FULL_IPPO[FULL_IPPO.index("--n-envs") + 1]),
-        int(FULL_IPPO[FULL_IPPO.index("--rollout-len") + 1]),
-    )
+    params0, model, env = ippo_init_params(FULL_IPPO)
     moved = np.abs(update_delta(jax.device_get(runner.params), params0)).max()
     assert moved > 0, "ippo: parameters did not move"
     print_update_times("  ippo", history)
@@ -249,18 +272,15 @@ def phase_ippo():
     # logits differ in the third digit, a near-tie may sample another
     # action, and Adam's first steps are sign-like, so near-zero gradient
     # elements can flip; metrics agree to 1e-2 + 5%, the parameter update
-    # to 10% in relative L2 norm.
+    # to MAX_REL_UPDATE in relative L2 norm.
     cpu = jax.devices("cpu")[0]
     r_gpu, h_gpu = train.main(SMALL_IPPO)
     with jax.default_device(cpu):
         r_cpu, h_cpu = train.main(SMALL_IPPO)
-    p0, _, _ = ippo_init_params(
-        int(SMALL_IPPO[SMALL_IPPO.index("--n-envs") + 1]),
-        int(SMALL_IPPO[SMALL_IPPO.index("--rollout-len") + 1]), device=cpu,
-    )
+    p0, _, _ = ippo_init_params(SMALL_IPPO, device=cpu)
     compare_runs("  ippo first update GPU vs CPU", h_cpu, h_gpu,
                  jax.device_get(r_cpu.params), jax.device_get(r_gpu.params),
-                 p0, atol=1e-2, rtol=5e-2, max_rel_update=0.1)
+                 p0, atol=1e-2, rtol=5e-2, max_rel_update=MAX_REL_UPDATE)
 
     # the policy forward in float32 at full matmul precision: no bf16 or
     # TF32 rounding left, so GPU and CPU agree to about 1e-5
@@ -297,8 +317,8 @@ def phase_four():
 
     n = len(jax.devices())
     assert n == 4, f"--four needs four GPUs, JAX sees {n}"
-    r1, h1 = train.main(FOUR_IPPO)
-    r4, h4 = train.main(FOUR_IPPO + ["--mesh"])
+    r1, h1 = train.main(FULL_IPPO)
+    r4, h4 = train.main(FULL_IPPO + ["--mesh"])
     check_finite(h4, "ippo --mesh")
     print_update_times("  one card", h1)
     print_update_times("  four cards", h4)
@@ -306,10 +326,10 @@ def phase_four():
     # partial products, then an all-reduce), so parameters differ in the
     # last bits after the first update, and the second rollout may sample
     # a near-tie differently; same bounds as GPU against CPU
-    params0, _, _ = ippo_init_params(16384, 128)
+    params0, _, _ = ippo_init_params(FULL_IPPO)
     compare_runs("  ippo 4 cards vs 1", h1, h4, jax.device_get(r1.params),
                  jax.device_get(r4.params), params0, atol=1e-2, rtol=5e-2,
-                 max_rel_update=0.1)
+                 max_rel_update=MAX_REL_UPDATE)
 
 
 def main(argv=None):
@@ -324,7 +344,7 @@ def main(argv=None):
 
     enable_persistent_cache()
     phases = [("four-card data parallel", phase_four)] if args.four else [
-        ("engine parity", phase_engine_parity),
+        ("engine parity (tests marked gpu)", phase_gpu_tests),
         ("rollout at full size", phase_rollout),
         ("ippo at full width", phase_ippo),
         ("every learner", phase_learners),

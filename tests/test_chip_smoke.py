@@ -88,13 +88,17 @@ def test_compare_runs_bounds_the_update_gap():
     p0 = {"w": np.zeros(100)}
     p_ref = {"w": np.full(100, 3e-4)}
     hist = [dict.fromkeys(chip_smoke.METRICS, 0.5) | {"step": 1}]
-    chip_smoke.compare_runs("same", hist, hist, p_ref, p_ref, p0,
-                            atol=1e-2, rtol=5e-2, max_rel_update=0.1)
+    tol = dict(atol=1e-2, rtol=5e-2, max_rel_update=chip_smoke.MAX_REL_UPDATE)
+    chip_smoke.compare_runs("same", hist, hist, p_ref, p_ref, p0, **tol)
+    chip_smoke.compare_runs("1% off", hist, hist, p_ref,
+                            {"w": 1.01 * p_ref["w"]}, p0, **tol)
+    # a 5% error in every update element is caught
+    with pytest.raises(AssertionError):
+        chip_smoke.compare_runs("5% off", hist, hist, p_ref,
+                                {"w": 1.05 * p_ref["w"]}, p0, **tol)
     with pytest.raises(AssertionError):
         chip_smoke.compare_runs("flipped", hist, hist, p_ref,
-                                {"w": -p_ref["w"]}, p0, atol=1e-2, rtol=5e-2,
-                                max_rel_update=0.1)
+                                {"w": -p_ref["w"]}, p0, **tol)
     off = [dict(hist[0], pg_loss=0.7)]
     with pytest.raises(AssertionError):
-        chip_smoke.compare_runs("metric", hist, off, p_ref, p_ref, p0,
-                                atol=1e-2, rtol=5e-2, max_rel_update=0.1)
+        chip_smoke.compare_runs("metric", hist, off, p_ref, p_ref, p0, **tol)

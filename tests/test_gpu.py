@@ -2,8 +2,8 @@
 
 Each test decides in the ``gpu`` fixture, never at import, whether JAX
 sees a GPU, and skips otherwise.  This suite's conftest pins JAX to the
-CPU, so here they always skip; ``python chip_smoke.py`` runs the same
-phase functions in-process on the card.
+CPU, so here they always skip; phase 1 of ``python chip_smoke.py`` runs
+them in-process on the card, without the conftest.
 """
 import jax
 import pytest
@@ -21,8 +21,12 @@ def gpu():
     return devices[0]
 
 
-def test_engine_parity_gpu_vs_cpu(gpu):
-    """The batched rollout on the GPU equals the CPU's bit for bit on the
-    three parity configurations (chip_smoke phase 1)."""
-    assert jax.devices()[0] == gpu
-    chip_smoke.phase_engine_parity()
+@pytest.mark.parametrize("name", list(chip_smoke.parity_configs()))
+def test_engine_parity_gpu_vs_cpu(gpu, name):
+    """The batched rollout on the GPU equals the CPU's bit for bit in
+    every state leaf, reward, done flag and observation."""
+    where = chip_smoke.engine_parity(
+        gpu, jax.devices("cpu")[0], chip_smoke.parity_configs()[name],
+        chip_smoke.PARITY_ENVS, chip_smoke.PARITY_STEPS,
+    )
+    assert where is None, f"{name}: GPU and CPU rollouts differ: {where}"

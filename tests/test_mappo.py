@@ -4,6 +4,7 @@ sharding."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 import rware_tpu
 from rware_tpu.models import IPPOConfig
@@ -170,6 +171,72 @@ def test_mappo_loss_native_matches_apply():
     np.testing.assert_allclose(
         np.asarray(v_native), np.asarray(v_flat_native),
         atol=5e-2,
+    )
+
+
+@pytest.mark.parametrize("msg_bits", [0, 2])
+def test_native_forward_matches_apply(msg_bits):
+    """_native_forward on native-layout obs (T, L, N, RB, LANE) ==
+    ActorCritic.apply on the same obs in (T, B, N, L) layout."""
+    from rware_tpu.models.mappo import _native_forward
+    from rware_tpu.models.networks import ActorCritic
+
+    T, L, N, RB, LANE, A = 3, 71, 2, 2, 128, 5
+    model = ActorCritic(n_actions=A, msg_bits=msg_bits)
+    params = model.init(jax.random.key(1), jnp.zeros((1, N, L)))
+    # observations are 0/1 features, stored in bf16 by the collector
+    obs = jax.random.bernoulli(
+        jax.random.key(2), 0.3, (T, L, N, RB, LANE)
+    ).astype(jnp.bfloat16)
+    heads_n, value_n = jax.jit(_native_forward)(params, obs)
+    obs_flat = jnp.transpose(
+        obs.reshape(T, L, N, RB * LANE), (0, 3, 2, 1)
+    ).astype(jnp.float32)
+    heads_f, value_f = model.apply(params, obs_flat)
+
+    def to_flat(x):  # (T, N, RB, LANE, ...) -> (T, B, N, ...)
+        return jnp.moveaxis(x.reshape(T, N, RB * LANE, *x.shape[4:]), 2, 1)
+
+    if msg_bits:
+        assert heads_n[1].shape == (T, N, RB, LANE, msg_bits)
+    for a, b in zip(jax.tree.leaves(heads_n), jax.tree.leaves(heads_f)):
+        np.testing.assert_allclose(
+            np.asarray(to_flat(a)), np.asarray(b), atol=3e-2
+        )
+    np.testing.assert_allclose(
+        np.asarray(to_flat(value_n)), np.asarray(value_f), atol=3e-2
+    )
+
+
+def test_native_gae_matches_flat():
+    """compute_gae_native on (T, N, RB, LANE) tensors with a (T, 1, RB,
+    LANE) done mask == ippo.compute_gae on the same data in (T, B, N)."""
+    from rware_tpu.models.ippo import compute_gae
+    from rware_tpu.models.mappo import compute_gae_native
+
+    cfg = IPPOConfig()
+    T, N, RB, LANE = 7, 2, 3, 4
+    B = RB * LANE
+    k1, k2, k3, k4 = jax.random.split(jax.random.key(0), 4)
+    rew = jax.random.normal(k1, (T, N, RB, LANE))
+    val = jax.random.normal(k2, (T, N, RB, LANE))
+    done = (jax.random.uniform(k3, (T, 1, RB, LANE)) < 0.2).astype(jnp.int32)
+    last_v = jax.random.normal(k4, (N, RB, LANE))
+
+    adv_n, tgt_n = compute_gae_native(cfg, rew, val, done, last_v)
+
+    def to_flat(x):  # (T, N, RB, LANE) -> (T, B, N)
+        return jnp.moveaxis(x.reshape(T, N, B), 1, 2)
+
+    adv_f, tgt_f = compute_gae(
+        cfg, to_flat(rew), to_flat(val), done.reshape(T, B),
+        jnp.swapaxes(last_v.reshape(N, B), 0, 1),
+    )
+    np.testing.assert_allclose(
+        np.asarray(to_flat(adv_n)), np.asarray(adv_f), rtol=1e-5, atol=1e-5
+    )
+    np.testing.assert_allclose(
+        np.asarray(to_flat(tgt_n)), np.asarray(tgt_f), rtol=1e-5, atol=1e-5
     )
 
 
